@@ -54,8 +54,9 @@ BF16_FLOP_PER_S = 989e12     # dense bf16 tensor-core peak
 GEMM_REL_TOL = 2.0 ** -7
 # served vs resident logits: bf16 activations (ulp 2^-8 relative) through
 # 2 layers whose expert sums run in other orders (slab kernel vs bmm) and
-# whose gates are rounded at other places; 5% of the largest |logit|
-LOGIT_REL_TOL = 0.05
+# whose gates are rounded at other places.  Measured 0.74% of the largest
+# |logit| on the H100; the CPU parity tests hold the port to 2% of it
+LOGIT_REL_TOL = 0.02
 
 
 def fail(msg: str):

@@ -25,7 +25,9 @@
 // partial sums in registers (4 per thread).  The next chunk is loaded into
 // registers while the current one is multiplied, so loads stay in flight.
 // Columns past f and rows past d are masked, so f need not be a multiple
-// of 64 or a power of two.
+// of 64 or a power of two; it must be a multiple of 8 and the slab 16-byte
+// aligned, so every weight row is read in 16-byte loads (the C entry point
+// returns cudaErrorInvalidValue otherwise, and the wrapper raises first).
 //
 // Bound on the H100: bytes.  Decode puts one to a few tokens on each
 // expert, so each projection does 2 x 8 flops per weight element it reads
@@ -51,18 +53,15 @@ constexpr int kThreads = 128;
 constexpr int kRowsPerThread = kRows * kCols / kThreads;   // 4
 constexpr int kXPerThread = kRows * kChunk / kThreads;     // 4
 constexpr int kVecPerThread = kChunk * kCols / 8 / kThreads;  // 4 x 16 B
-constexpr int kScalarPerThread = kChunk * kCols / kThreads;   // 32
 
 static_assert(kRowsPerThread * kThreads == kRows * kCols, "tile split");
 static_assert(kCols % 8 == 0, "16-byte weight loads");
 
 struct Stage {
   float x[kXPerThread];
-  uint4 wv[kVecPerThread];
-  unsigned short ws[kScalarPerThread];
+  uint4 w[kVecPerThread];
 };
 
-template <bool kVec>
 __device__ __forceinline__ void load_stage(
     Stage& st, const __nv_bfloat16* __restrict__ xt,
     const __nv_bfloat16* __restrict__ w, int k0, int col0, int d, int f) {
@@ -75,33 +74,20 @@ __device__ __forceinline__ void load_stage(
                   ? __bfloat162float(xt[static_cast<long long>(r) * d + k0 + k])
                   : 0.f;
   }
-  if (kVec) {
 #pragma unroll
-    for (int j = 0; j < kVecPerThread; ++j) {
-      const int i = tid + j * kThreads;
-      const int k = i / (kCols / 8), c = (i % (kCols / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      // f % 8 == 0 on this path, so an 8-column group is wholly in or out
-      if (k0 + k < d && col0 + c < f) {
-        v = __ldg(reinterpret_cast<const uint4*>(
-            w + static_cast<long long>(k0 + k) * f + col0 + c));
-      }
-      st.wv[j] = v;
+  for (int j = 0; j < kVecPerThread; ++j) {
+    const int i = tid + j * kThreads;
+    const int k = i / (kCols / 8), c = (i % (kCols / 8)) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    // f % 8 == 0, so an 8-column group is wholly in or out
+    if (k0 + k < d && col0 + c < f) {
+      v = __ldg(reinterpret_cast<const uint4*>(
+          w + static_cast<long long>(k0 + k) * f + col0 + c));
     }
-  } else {
-    const unsigned short* wu = reinterpret_cast<const unsigned short*>(w);
-#pragma unroll
-    for (int j = 0; j < kScalarPerThread; ++j) {
-      const int i = tid + j * kThreads;
-      const int k = i / kCols, c = i % kCols;
-      st.ws[j] = (k0 + k < d && col0 + c < f)
-                     ? wu[static_cast<long long>(k0 + k) * f + col0 + c]
-                     : static_cast<unsigned short>(0);
-    }
+    st.w[j] = v;
   }
 }
 
-template <bool kVec>
 __device__ __forceinline__ void store_stage(
     const Stage& st, float (*xs)[kChunk],
     unsigned short (*ws)[kCols]) {
@@ -111,23 +97,14 @@ __device__ __forceinline__ void store_stage(
     const int i = tid + j * kThreads;
     xs[i / kChunk][i % kChunk] = st.x[j];
   }
-  if (kVec) {
 #pragma unroll
-    for (int j = 0; j < kVecPerThread; ++j) {
-      const int i = tid + j * kThreads;
-      const int k = i / (kCols / 8), c = (i % (kCols / 8)) * 8;
-      *reinterpret_cast<uint4*>(&ws[k][c]) = st.wv[j];
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < kScalarPerThread; ++j) {
-      const int i = tid + j * kThreads;
-      ws[i / kCols][i % kCols] = st.ws[j];
-    }
+  for (int j = 0; j < kVecPerThread; ++j) {
+    const int i = tid + j * kThreads;
+    const int k = i / (kCols / 8), c = (i % (kCols / 8)) * 8;
+    *reinterpret_cast<uint4*>(&ws[k][c]) = st.w[j];
   }
 }
 
-template <bool kVec>
 __global__ void __launch_bounds__(kThreads) zipmoe_slab_gemm_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ buf,
     const int* __restrict__ tile_slot, __nv_bfloat16* __restrict__ out, int d,
@@ -149,11 +126,11 @@ __global__ void __launch_bounds__(kThreads) zipmoe_slab_gemm_kernel(
   for (int r = 0; r < kRowsPerThread; ++r) acc[r] = 0.f;
 
   Stage st;
-  load_stage<kVec>(st, xt, w, 0, col0, d, f);
+  load_stage(st, xt, w, 0, col0, d, f);
   for (int k0 = 0; k0 < d; k0 += kChunk) {
-    store_stage<kVec>(st, xs, ws);
+    store_stage(st, xs, ws);
     __syncthreads();
-    if (k0 + kChunk < d) load_stage<kVec>(st, xt, w, k0 + kChunk, col0, d, f);
+    if (k0 + kChunk < d) load_stage(st, xt, w, k0 + kChunk, col0, d, f);
     const int kn = min(kChunk, d - k0);
     for (int k = 0; k < kn; ++k) {
       const float wv = __bfloat162float(
@@ -202,19 +179,15 @@ extern "C" int zipmoe_slab_gemm(const void* x, const void* buf,
                                 void* stream) {
   if (n_tiles <= 0 || f <= 0) return 0;
   const dim3 grid((f + kCols - 1) / kCols, n_tiles);
-  const bool vec = (f % 8 == 0) && (slot_stride % 8 == 0) &&
-                   (reinterpret_cast<uintptr_t>(buf) & 15u) == 0;
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* wb = static_cast<const __nv_bfloat16*>(buf);
-  const auto* ts = static_cast<const int*>(tile_slot);
-  auto* ob = static_cast<__nv_bfloat16*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    zipmoe_slab_gemm_kernel<true><<<grid, kThreads, 0, s>>>(
-        xb, wb, ts, ob, d, f, slot_stride);
-  } else {
-    zipmoe_slab_gemm_kernel<false><<<grid, kThreads, 0, s>>>(
-        xb, wb, ts, ob, d, f, slot_stride);
+  if (f % 8 != 0 || slot_stride % 8 != 0 ||
+      (reinterpret_cast<uintptr_t>(buf) & 15u) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  zipmoe_slab_gemm_kernel<<<grid, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(buf),
+      static_cast<const int*>(tile_slot), static_cast<__nv_bfloat16*>(out), d,
+      f, slot_stride);
   return static_cast<int>(cudaGetLastError());
 }

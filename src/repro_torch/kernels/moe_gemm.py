@@ -32,7 +32,8 @@ BLOCK_C = 8      # token rows per tile, fixed by the kernel
 def slab_ragged_gemm(x: torch.Tensor, buf: torch.Tensor,
                      tile_slot) -> torch.Tensor:  # hot-path
     """x: [T, d] bf16 CUDA (T a multiple of 8); buf: [capacity, d, f] bf16
-    CUDA; tile_slot: host int array [T // 8] of slots in [0, capacity).
+    CUDA, f a multiple of 8; tile_slot: host int array [T // 8] of slots in
+    [0, capacity).
     Returns x @ buf[slot-of-tile] -> [T, f] bf16 with f32 accumulation."""
     _build.require_cuda(x, torch.bfloat16, "x")
     _build.require_cuda(buf, torch.bfloat16, "buf", x.device)
@@ -45,6 +46,9 @@ def slab_ragged_gemm(x: torch.Tensor, buf: torch.Tensor,
         raise ValueError(f"contraction mismatch: x d={d}, buf d={d_w}")
     if T % BLOCK_C:
         raise ValueError(f"T={T} is not a multiple of the {BLOCK_C}-row tile")
+    if f % 8 or buf.data_ptr() % 16:
+        raise ValueError(f"the kernel reads weights in 16-byte loads: f={f} "
+                         f"must be a multiple of 8 and buf 16-byte aligned")
     if isinstance(tile_slot, torch.Tensor):
         if tile_slot.device.type != "cpu":
             raise ValueError("tile_slot must be on the host, so its slots "

@@ -18,20 +18,15 @@ import torch
 from repro_torch.kernels import _build
 
 
-def recover_bf16(exp: torch.Tensor, sm: torch.Tensor,
-                 out: torch.Tensor = None) -> torch.Tensor:
+def recover_bf16(exp: torch.Tensor, sm: torch.Tensor) -> torch.Tensor:
     """Splice two u8 CUDA planes (any shape, same numel) into a flat bf16
-    tensor (or into `out`, a contiguous bf16 CUDA tensor of that numel)."""
+    tensor."""
     _build.require_cuda(exp, torch.uint8, "exp")
     _build.require_cuda(sm, torch.uint8, "sm", exp.device)
     n = exp.numel()
     if sm.numel() != n:
         raise ValueError(f"plane sizes differ: exp {n}, sm {sm.numel()}")
-    if out is None:
-        out = torch.empty(n, dtype=torch.bfloat16, device=exp.device)
-    _build.require_cuda(out, torch.bfloat16, "out", exp.device)
-    if out.numel() != n:
-        raise ValueError(f"out has {out.numel()} elements, planes {n}")
+    out = torch.empty(n, dtype=torch.bfloat16, device=exp.device)
     if n == 0:                      # nothing to launch, nothing to count
         return out
     lib = _build.library()

@@ -67,7 +67,7 @@ def test_splice_admit_in_place(cuda):
 @pytest.mark.parametrize("d,f,ts", [
     (2048, 1408, [2, 0, 0, 3, 1, 7, 5, 5]),     # main path, vector loads
     (1408, 2048, [1, 2, 3, 4]),
-    (24, 40, [2, 0, 1]),                        # f % 8 != 0: scalar loads
+    (24, 40, [2, 0, 1]),                        # d, f under one block
     (64, 72, [1, 0]),                           # ragged f edge
 ])
 def test_slab_gemm_vs_plain(cuda, d, f, ts):
@@ -94,10 +94,26 @@ def test_slab_gemm_rejects_bad_slots(cuda):
         moe_gemm.slab_ragged_gemm(x, buf, np.asarray([0, 1], np.int32))
 
 
+def test_slab_gemm_rejects_unaligned_weights(cuda):
+    """The kernel reads weights in 16-byte loads only: f % 8 != 0 or a
+    misaligned buffer raises before launch."""
+    x = torch.zeros((8, 16), dtype=torch.bfloat16, device=cuda)
+    ts = np.zeros(1, np.int32)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        moe_gemm.slab_ragged_gemm(
+            x, torch.zeros((1, 16, 36), dtype=torch.bfloat16, device=cuda), ts)
+    flat = torch.zeros(16 * 16 + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        moe_gemm.slab_ragged_gemm(x, flat[1:].view(1, 16, 16), ts)
+    assert _build.LAUNCHES["slab_gemm"] == 0
+
+
 def test_zipserver_on_card_launches_kernels(cuda, tmp_path):
     """Smoke-size ZipServer on the card: all three kernels launch, and the
-    logits match the resident model on the card within 5% of the largest
-    |logit| (bf16 sums in other orders)."""
+    logits match the resident model on the card within 2% of the largest
+    |logit| (bf16 sums in other orders), the tolerance of the CPU parity
+    tests."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.store import build_store
     from repro_torch.models import decode_step, init_cache, init_params
@@ -116,7 +132,7 @@ def test_zipserver_on_card_launches_kernels(cuda, tmp_path):
             lg, caches = zs.decode_step(tok, caches, i)
             rl, rcache = decode_step(params, cfg, tok, rcache, i)
             err = (lg.float() - rl.float()).abs().max().item()
-            assert err <= 0.05 * rl.float().abs().max().item()
+            assert err <= 0.02 * rl.float().abs().max().item(), (i, err)
             tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
         torch.cuda.synchronize()
         assert all(n > 0 for n in _build.LAUNCHES.values()), _build.LAUNCHES
