@@ -17,16 +17,29 @@ failure exits non-zero:
    same function where there is one, and its bound on an H100 SXM
    (3.35 TB/s, 989 TFLOP/s bf16 dense).
 3. The main path at full width: qwen2-moe-a2.7b with every width as
-   published, depth cut to 2 layers, seeded random weights.  Build the
+   published, depth cut to 2 layers, seeded random weights.  Build ONE
    compressed store (groups compressed in parallel), check every expert
-   tensor loads bit-exactly, then serve a batch of 4 requests for 8 greedy
-   tokens through ``ZipServer(device_cache=True, ffn_impl="ragged")`` with
-   an F pool smaller than a step's distinct experts, and hold its logits
-   against the resident model under teacher forcing.  A second server with
-   every expert slab-resident must move zero h2d and zero weight-copy
-   bytes on its decode steps.
-4. One JSON line with each kernel's launches on the main path, error, times
-   and bound; then the result line.
+   tensor loads bit-exactly, then serve a batch of 4 requests of greedy
+   tokens through each ``ZipServer`` path, each from that store:
+
+   * ``device_cache=True, ffn_impl="ragged"`` with an F pool smaller than a
+     step's distinct experts (8 tokens), held against the resident model
+     under teacher forcing;
+   * ``fused_recovery=True, ffn_impl="grouped"`` (8 tokens), held against
+     the resident model, with no standalone splice;
+   * ``fused_recovery=True, ffn_impl="loop"`` (8 tokens), bit-identical to
+     the batched fused path;
+   * every expert slab-resident, ``ffn_impl="ragged"`` and ``"grouped"``
+     (4 tokens): bit-identical to each other, zero h2d bytes on the hit
+     steps, zero weight-copy bytes on the ragged path and the gather copy
+     on the grouped one;
+   * ``profile_p_times=True`` (3 tokens): measured p-time buckets.
+
+   Each path's launch counts are reset just before its first step and
+   read just after its last; every kernel must launch on the paths that
+   run it.
+4. One JSON line with each kernel's launches on its path, error, times and
+   bound; then the result line.
 """
 from __future__ import annotations
 
@@ -46,6 +59,15 @@ BATCH = 4                    # requests served together
 NEW_TOKENS = 8
 SEED = 0
 POOLS_SMALL = {"F": 8, "C": 8, "S": 16, "E": 16}   # F < a step's ~16 experts
+PROFILE_STEPS = 3            # the measured-p path needs only a few steps
+# the kernels each served path must launch (phase 3)
+PATH_KERNELS = {
+    "ragged": ("splice", "splice_admit", "slab_gemm"),
+    "fused-grouped": ("zip_gemm_grouped",),
+    "fused-loop": ("zip_gemm",),
+    "grouped-cache-hit": ("grouped_gemm",),
+    "profile": ("grouped_gemm", "slab_gemm"),
+}
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12     # dense bf16 tensor-core peak
 # ragged GEMM vs its f32 plain version: both sum in f32 but in another
@@ -244,18 +266,245 @@ def kernel_phase(torch, np, dev, cfg):
         max_abs_err=max(errs), ms=times["ms"], plain_ms=times["plain_ms"],
         bound_ms=bms, bound_by=by, library_ms=times["library_ms"],
         shape=[T, d, f, "+", T, f, d])
+
+    # -- grouped and fused GEMMs at the main path's shapes ------------------
+    # a decode step's padded batch: 16 active experts x C = 8 rows (4
+    # tokens x top-4 spread one or two per expert), gate/up then down
+    n_e, C = 16, 8
+    acc = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "err": 0.0,
+               "bytes": 0.0, "flops": 0.0}
+           for k in ("grouped_gemm", "zip_gemm_grouped", "zip_gemm")}
+    for (dd, ff) in ((d, f), (f, d)):
+        x = torch.randn((n_e, C, dd), device=dev, generator=g).to(
+            torch.bfloat16)
+        x[:, 2:] = 0                             # pad rows of each group
+        wb = (torch.randn((n_e, dd, ff), device=dev, generator=g)
+              * 0.02).to(torch.bfloat16)
+        e8, s8 = (p.view(n_e, dd, ff) for p in bitfield.decompose(wb))
+        o = torch.empty((n_e, C, ff), dtype=torch.bfloat16, device=dev)
+        # the grouped GEMM against its plain version and torch.bmm
+        k = moe_gemm.grouped_gemm(x, wb)
+        r = ref.moe_gemm_ref(x, wb)
+        err = (k.float() - r.float()).abs().max().item()
+        scale = r.float().abs().max().item()
+        check(err <= GEMM_REL_TOL * scale, f"grouped GEMM [{dd}->{ff}] "
+              f"error {err} > {GEMM_REL_TOL} x {scale}")
+        a = acc["grouped_gemm"]
+        a["err"] = max(a["err"], err)
+        a["ms"] += med_ms(lambda: lib.zipmoe_grouped_gemm(
+            x.data_ptr(), wb.data_ptr(), o.data_ptr(), n_e, C, dd, ff,
+            stream), torch)
+        a["plain_ms"] += med_ms(lambda: ref.moe_gemm_ref(x, wb), torch)
+        a["library_ms"] += med_ms(lambda: torch.bmm(x, wb), torch)
+        a["bytes"] += 2.0 * n_e * (C * dd + dd * ff + C * ff)
+        a["flops"] += 2.0 * n_e * C * dd * ff
+        # the fused splice + grouped GEMM: the same bits as splicing first
+        kz = moe_gemm.zip_gemm_grouped(x, e8, s8)
+        check(torch.equal(kz.view(torch.int16), k.view(torch.int16)),
+              f"zip_gemm_grouped [{dd}->{ff}] differs from the grouped GEMM "
+              f"on the spliced weights")
+        rz = ref.zip_gemm_grouped_ref(x, e8, s8)
+        err = (kz.float() - rz.float()).abs().max().item()
+        check(err <= GEMM_REL_TOL * scale, f"zip_gemm_grouped [{dd}->{ff}] "
+              f"error {err} > {GEMM_REL_TOL} x {scale}")
+        a = acc["zip_gemm_grouped"]
+        a["err"] = max(a["err"], err)
+        a["ms"] += med_ms(lambda: lib.zipmoe_zip_gemm_grouped(
+            x.data_ptr(), e8.data_ptr(), s8.data_ptr(), o.data_ptr(), n_e, C,
+            dd, ff, stream), torch)
+        a["plain_ms"] += med_ms(lambda: ref.zip_gemm_grouped_ref(x, e8, s8),
+                                torch)
+        a["bytes"] += 2.0 * n_e * (C * dd + dd * ff + C * ff)
+        a["flops"] += 2.0 * n_e * C * dd * ff
+        # one expert at a time: the batched kernel's rows, bit for bit;
+        # timed launches rotate over the 16 experts (92 MB, past the L2)
+        for e in range(n_e):
+            one = moe_gemm.zip_gemm(x[e], e8[e], s8[e])
+            check(torch.equal(one.view(torch.int16), kz[e].view(torch.int16)),
+                  f"zip_gemm expert {e} [{dd}->{ff}] differs from its row "
+                  f"of zip_gemm_grouped")
+        a = acc["zip_gemm"]
+        a["err"] = max(a["err"], acc["zip_gemm_grouped"]["err"])
+
+        def zip_one():
+            e = it[0] % n_e
+            it[0] += 1
+            lib.zipmoe_zip_gemm(x[e].data_ptr(), e8[e].data_ptr(),
+                                s8[e].data_ptr(), o[e].data_ptr(), C, dd, ff,
+                                stream)
+
+        def zip_one_plain():
+            e = it[0] % n_e
+            it[0] += 1
+            ref.zip_gemm_grouped_ref(x[e:e + 1], e8[e:e + 1], s8[e:e + 1])
+
+        a["ms"] += med_ms(zip_one, torch)
+        a["plain_ms"] += med_ms(zip_one_plain, torch)
+        a["bytes"] += 2.0 * (C * dd + dd * ff + C * ff)
+        a["flops"] += 2.0 * C * dd * ff
+        print(f"grouped / zip GEMMs [{n_e}, {C}, {dd}] x [{n_e}, {dd}, {ff}]: "
+              f"grouped max abs err {acc['grouped_gemm']['err']:.3g} (max "
+              f"|out| {scale:.3g}); zip_gemm_grouped bit-equal to the "
+              f"grouped GEMM, zip_gemm bit-equal to its rows", flush=True)
+        del wb, e8, s8
+    lines = {"grouped_gemm": "src/repro/kernels/moe_gemm.py:76",
+             "zip_gemm_grouped": "src/repro/kernels/moe_gemm.py:268",
+             "zip_gemm": "src/repro/kernels/moe_gemm.py:227"}
+    for name, a in acc.items():
+        bms, by = bound(a["bytes"], a["flops"])
+        res[name] = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/moe_gemm.cu",
+            replaces=lines[name], max_abs_err=a["err"], ms=a["ms"],
+            plain_ms=a["plain_ms"], bound_ms=bms, bound_by=by,
+            # no single PyTorch call splices and multiplies
+            library_ms=a["library_ms"] if name == "grouped_gemm" else None)
     return res
 
 
 # ----------------------------------------------------------------------------
 # phase 3: the main path at full width
 # ----------------------------------------------------------------------------
+def serve(torch, zs, prompt, steps, t_len):
+    """Greedy decode of `prompt` for `steps` tokens; the launch counters are
+    reset just before the first step and read just after the last.  A step
+    ends when its token is known on the host.  Returns the step inputs,
+    logits, host step times, served tokens, launches and stats."""
+    from repro_torch.kernels import _build
+    caches = zs.init_cache(prompt.shape[0], t_len)
+    tok = prompt
+    inputs, logits, times = [], [], []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for i in range(steps):
+        t1 = time.perf_counter()
+        inputs.append(tok)
+        lg, caches = zs.decode_step(tok, caches, i)
+        tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+        tok.cpu()
+        times.append(time.perf_counter() - t1)
+        logits.append(lg)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    served = torch.cat(inputs[1:] + [tok], dim=1).cpu().numpy()
+    return dict(inputs=inputs, logits=logits, times=times, served=served,
+                launches=launches, stats=list(zs.stats),
+                overlap=zs.overlap_summary(), cache=zs.cache_summary())
+
+
+def path_numbers(run, n_moe: int):
+    """TPOT over steps 2.., blocked time per step, traffic counters."""
+    steps = len(run["times"])
+    stats, ov = run["stats"], run["overlap"]
+    return {"tpot_ms": statistics.mean(run["times"][1:]) * 1e3,
+            "blocked_ms": sum(s["blocked_s"] for s in stats[n_moe:])
+            / (steps - 1) * 1e3,
+            "first_step_ms": run["times"][0] * 1e3,
+            "h2d_bytes": ov["h2d_bytes"], "w_copy_bytes": ov["w_copy_bytes"],
+            "splice_ops": ov["splice_ops"], "steps": steps,
+            "hit_rate": run["cache"].get("hit_rate")}
+
+
+def check_resident(torch, np, dev, cfg, params, run, what: str):
+    """Hold a served run's logits against the resident model under teacher
+    forcing.  Rows are independent requests.  A token whose router picks
+    another expert set in the two models (a near-tie in router
+    probabilities flipped by bf16 noise) takes another FFN, and its row's
+    KV cache differs from then on: such a row is reported and left out of
+    the logit comparison for the rest of the run."""
+    from repro_torch.models import decode_step, init_cache
+    n_moe = len(cfg_moe_layers(cfg))
+    steps = len(run["inputs"])
+    rcache = init_cache(cfg, BATCH, steps + 1, device=dev)
+    served_routes = [s["routes"] for s in run["stats"]]
+    live = np.ones(BATCH, bool)
+    worst, agree, compared, flips = 0.0, 0, 0, []
+    for i in range(steps):
+        ids = []
+        rl, rcache = decode_step(params, cfg, run["inputs"][i], rcache, i,
+                                 router_ids=ids)
+        for j, r_ids in enumerate(ids):
+            mine = served_routes[i * n_moe + j]
+            theirs = r_ids.reshape(BATCH, -1).cpu().numpy()
+            for b in range(BATCH):
+                if live[b] and set(mine[b]) != set(theirs[b]):
+                    live[b] = False
+                    flips.append((i, j, b))
+        a, b_ = run["logits"][i].float(), rl.float()
+        check(bool(torch.isfinite(a).all()),
+              f"{what}: non-finite logits at step {i}")
+        check(a.shape == (BATCH, 1, cfg.vocab_size), f"logits {a.shape}")
+        agree += int((a.argmax(-1) == b_.argmax(-1)).sum().item())
+        if not live.any():
+            continue
+        rows = torch.from_numpy(np.flatnonzero(live)).to(dev)
+        err = (a[rows] - b_[rows]).abs().max().item()
+        scale = b_[rows].abs().max().item()
+        worst = max(worst, err / scale)
+        compared += int(live.sum())
+        check(err <= LOGIT_REL_TOL * scale,
+              f"{what} step {i}: served vs resident logits differ by {err} "
+              f"(> {LOGIT_REL_TOL} x {scale}) on identically routed rows "
+              f"{np.flatnonzero(live).tolist()}")
+    check(compared >= BATCH * steps // 2,
+          f"{what}: only {compared} (step, row) pairs routed identically")
+    print(f"{what}: served vs resident logits on identically routed rows "
+          f"({compared}/{BATCH * steps} (step, row) pairs; routing flips at "
+          f"(step, layer, row) {flips}): max |diff| / max |logit| = "
+          f"{worst:.4g} (tolerance {LOGIT_REL_TOL}); greedy tokens agree "
+          f"{agree}/{BATCH * steps}", flush=True)
+    return worst
+
+
+def same_logits(torch, a, b) -> bool:
+    return all(torch.equal(x.view(torch.int16), y.view(torch.int16))
+               for x, y in zip(a["logits"], b["logits"]))
+
+
+def warm_hit_run(torch, zs, cfg, prompt, steps: int = 4):
+    """Warm every expert into F (the slab in device mode), then serve
+    `steps` steps; steps 2.. are full cache hits.  Returns the run plus
+    the h2d / weight-copy bytes of those hit steps and their host and
+    stream times."""
+    from repro_torch.kernels import _build
+    for l in zs._moe_layers:
+        zs.engine.fetch_experts(l, list(range(cfg.n_experts)))
+    caches = zs.init_cache(BATCH, steps + 1)
+    lg, caches = zs.decode_step(prompt, caches, 0)
+    tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+    logits = [lg]
+    h2d0, w0 = zs.engine.h2d_bytes, zs.engine.w_copy_bytes
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    host_ms, dev_ms = [], []
+    for i in range(1, steps):
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        ev0.record()
+        lg, caches = zs.decode_step(tok, caches, i)
+        tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+        ev1.record()
+        tok.cpu()
+        host_ms.append((time.perf_counter() - t1) * 1e3)
+        dev_ms.append(ev0.elapsed_time(ev1))
+        logits.append(lg)
+    torch.cuda.synchronize()
+    return {"logits": logits, "launches": dict(_build.LAUNCHES),
+            "h2d_bytes": zs.engine.h2d_bytes - h2d0,
+            "w_copy_bytes": zs.engine.w_copy_bytes - w0,
+            "tpot_ms": statistics.mean(host_ms),
+            "stream_ms": statistics.mean(dev_ms)}
+
+
 def main_path(torch, np, dev, cfg, store_dir):
+    """Build one full-width store, then serve every path from it.  Returns
+    each path's launch counts and numbers."""
     from repro_torch.core import bitfield
     from repro_torch.core.codec import DEFAULT_CODEC
     from repro_torch.core.store import build_store
-    from repro_torch.kernels import _build
-    from repro_torch.models import decode_step, init_cache, init_params
+    from repro_torch.models import init_params
     from repro_torch.serving.zipserve import ZipServer
 
     t0 = time.perf_counter()
@@ -289,138 +538,97 @@ def main_path(torch, np, dev, cfg, store_dir):
     rng = np.random.default_rng(SEED)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, 1))
                               ).to(dev)
-    T = NEW_TOKENS + 1
-
-    # -- the main path: small pools, device slabs, ragged FFN --------------
-    zs = ZipServer(params, cfg, store_dir, L=6, pool_sizes=POOLS_SMALL,
-                   device_cache=True, ffn_impl="ragged", prefetch=True,
-                   device=dev)
-    try:
-        caches = zs.init_cache(BATCH, T)
-        tok = prompt
-        inputs, logits, steps = [], [], []
-        torch.cuda.synchronize()
-        _build.reset_launches()
-        for i in range(NEW_TOKENS):
-            t1 = time.perf_counter()
-            inputs.append(tok)
-            lg, caches = zs.decode_step(tok, caches, i)
-            tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
-            tok.cpu()                      # step ends when its token is known
-            steps.append(time.perf_counter() - t1)
-            logits.append(lg)
-        torch.cuda.synchronize()
-        launches = dict(_build.LAUNCHES)
-        stats = list(zs.stats)
-        ov = zs.overlap_summary()
-        cs = zs.cache_summary()
-    finally:
-        zs.close()
-    served = torch.cat(inputs[1:] + [tok], dim=1).cpu().numpy()
-    print(f"served {BATCH} requests x {NEW_TOKENS} tokens: "
-          f"{served.tolist()}", flush=True)
-    print(f"main path launches: {launches}", flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
-    tpot = statistics.mean(steps[1:])
     n_moe = len(cfg_moe_layers(cfg))
-    blocked = sum(s["blocked_s"] for s in stats[n_moe:]) / (NEW_TOKENS - 1)
-    print(f"TPOT (steps 2..{NEW_TOKENS}, {N_LAYERS} layers, pools "
-          f"{POOLS_SMALL}): {tpot * 1e3:.1f} ms, of which "
-          f"{blocked * 1e3:.1f} ms blocked on expert reconstruction; first "
-          f"step {steps[0] * 1e3:.1f} ms; h2d_bytes {ov['h2d_bytes']}, "
-          f"w_copy_bytes {ov['w_copy_bytes']}, splice_ops "
-          f"{ov['splice_ops']}, pad_frac {ov['pad_frac']:.3f}, hit rate "
-          f"{cs.get('hit_rate')}", flush=True)
+    launches, numbers = {}, {"build_store_s": build_s}
 
-    # -- resident model under teacher forcing -------------------------------
-    # Rows are independent requests.  A token whose router picks another
-    # expert set in the two models (a near-tie in router probabilities
-    # flipped by bf16 noise) takes another FFN, and its row's KV cache
-    # differs from then on: such a row is reported and left out of the
-    # logit comparison for the rest of the run.
-    rcache = init_cache(cfg, BATCH, T, device=dev)
-    served_routes = [s["routes"] for s in stats]   # per step, per MoE layer
-    live = np.ones(BATCH, bool)
-    worst, agree, compared, flips = 0.0, 0, 0, []
-    for i in range(NEW_TOKENS):
-        ids = []
-        rl, rcache = decode_step(params, cfg, inputs[i], rcache, i,
-                                 router_ids=ids)
-        for j, r_ids in enumerate(ids):
-            mine = served_routes[i * n_moe + j]
-            theirs = r_ids.reshape(BATCH, -1).cpu().numpy()
-            for b in range(BATCH):
-                if live[b] and set(mine[b]) != set(theirs[b]):
-                    live[b] = False
-                    flips.append((i, j, b))
-        a, b_ = logits[i].float(), rl.float()
-        check(bool(torch.isfinite(a).all()), f"non-finite logits at step {i}")
-        check(a.shape == (BATCH, 1, cfg.vocab_size), f"logits {a.shape}")
-        agree += int((a.argmax(-1) == b_.argmax(-1)).sum().item())
-        if not live.any():
-            continue
-        rows = torch.from_numpy(np.flatnonzero(live)).to(dev)
-        err = (a[rows] - b_[rows]).abs().max().item()
-        scale = b_[rows].abs().max().item()
-        worst = max(worst, err / scale)
-        compared += int(live.sum())
-        check(err <= LOGIT_REL_TOL * scale,
-              f"step {i}: served vs resident logits differ by {err} "
-              f"(> {LOGIT_REL_TOL} x {scale}) on identically routed rows "
-              f"{np.flatnonzero(live).tolist()}")
-    check(compared >= BATCH * NEW_TOKENS // 2,
-          f"only {compared} (step, row) pairs routed identically")
-    print(f"served vs resident logits on identically routed rows "
-          f"({compared}/{BATCH * NEW_TOKENS} (step, row) pairs; routing "
-          f"flips at (step, layer, row) {flips}): max |diff| / max |logit| "
-          f"= {worst:.4g} (tolerance {LOGIT_REL_TOL}); greedy tokens agree "
-          f"{agree}/{BATCH * NEW_TOKENS}", flush=True)
+    def server(**kw):
+        return ZipServer(params, cfg, store_dir, L=6, prefetch=True,
+                         device=dev, **kw)
 
-    # -- a fully cache-hit step: zero h2d and zero weight copy --------------
+    def run_path(name, steps, **kw):
+        zs = server(**kw)
+        try:
+            run = serve(torch, zs, prompt, steps, steps + 1)
+            if kw.get("profile_p_times"):
+                run["p_times"] = zs.p_time_summary()
+        finally:
+            zs.close()
+        launches[name] = run["launches"]
+        numbers[name] = path_numbers(run, n_moe)
+        print(f"{name}: served {run['served'].tolist()}; launches "
+              f"{run['launches']}; {json.dumps(numbers[name])}", flush=True)
+        return run
+
+    # -- the slice-1 path: small pools, device slabs, ragged FFN -----------
+    ragged = run_path("ragged", NEW_TOKENS, pool_sizes=POOLS_SMALL,
+                      device_cache=True, ffn_impl="ragged")
+    numbers["ragged"]["logit_rel_err"] = check_resident(
+        torch, np, dev, cfg, params, ragged, "ragged")
+
+    # -- (a) fused recovery, one batched zip GEMM per projection -----------
+    fused = run_path("fused-grouped", NEW_TOKENS, pool_sizes=POOLS_SMALL,
+                     fused_recovery=True, ffn_impl="grouped")
+    numbers["fused-grouped"]["logit_rel_err"] = check_resident(
+        torch, np, dev, cfg, params, fused, "fused-grouped")
+    check(numbers["fused-grouped"]["splice_ops"] == 0,
+          "the fused path ran standalone splices")
+
+    # -- (b) fused recovery, one zip GEMM per expert: the same bits --------
+    loop = run_path("fused-loop", NEW_TOKENS, pool_sizes=POOLS_SMALL,
+                    fused_recovery=True, ffn_impl="loop")
+    check(same_logits(torch, fused, loop),
+          "fused loop logits differ from the fused batched path")
+    check(numbers["fused-loop"]["h2d_bytes"]
+          == numbers["fused-grouped"]["h2d_bytes"],
+          "fused loop and batched paths uploaded other plane bytes")
+    print("fused-loop: logits bit-identical to fused-grouped", flush=True)
+    del fused, loop
+
+    # -- (c) every expert slab-resident: ragged vs grouped FFN -------------
     ample = {"F": cfg.n_experts, "C": 0, "S": 0, "E": 0}
-    zs = ZipServer(params, cfg, store_dir, L=6, pool_sizes=ample,
-                   device_cache=True, ffn_impl="ragged", prefetch=True,
-                   device=dev)
-    try:
-        for l in zs._moe_layers:           # warm every expert into the slab
-            zs.engine.fetch_experts(l, list(range(cfg.n_experts)))
-        caches = zs.init_cache(BATCH, T)
-        lg, caches = zs.decode_step(prompt, caches, 0)
-        tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
-        h2d0, w0 = zs.engine.h2d_bytes, zs.engine.w_copy_bytes
-        g0 = _build.LAUNCHES["slab_gemm"]
-        hit_steps, dev_ms = [], []
-        for i in range(1, 4):
-            torch.cuda.synchronize()
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            t1 = time.perf_counter()
-            ev0.record()
-            lg, caches = zs.decode_step(tok, caches, i)
-            tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
-            ev1.record()
-            tok.cpu()
-            hit_steps.append(time.perf_counter() - t1)
-            dev_ms.append(ev0.elapsed_time(ev1))
-        h2d = zs.engine.h2d_bytes - h2d0
-        wc = zs.engine.w_copy_bytes - w0
-        n_gemm = _build.LAUNCHES["slab_gemm"] - g0
-    finally:
-        zs.close()
-    check(h2d == 0 and wc == 0,
-          f"cache-hit steps moved h2d {h2d} / weight-copy {wc} bytes")
-    check(n_gemm == 3 * 3 * len(cfg_moe_layers(cfg)),
-          f"cache-hit steps launched the ragged GEMM {n_gemm} times")
-    print(f"cache-hit steps: h2d_bytes 0, w_copy_bytes 0, {n_gemm} ragged "
-          f"GEMM launches straight from the slabs; TPOT "
-          f"{statistics.mean(hit_steps) * 1e3:.1f} ms host wall, "
-          f"{statistics.mean(dev_ms):.1f} ms between the step's first and "
-          f"last stream events", flush=True)
-    return launches, {"tpot_ms": tpot * 1e3, "blocked_ms": blocked * 1e3,
-                      "hit_tpot_ms": statistics.mean(hit_steps) * 1e3,
-                      "hit_stream_ms": statistics.mean(dev_ms),
-                      "build_store_s": build_s}
+    hits = {}
+    for impl in ("ragged", "grouped"):
+        zs = server(pool_sizes=ample, device_cache=True, ffn_impl=impl)
+        try:
+            hits[impl] = warm_hit_run(torch, zs, cfg, prompt)
+        finally:
+            zs.close()
+        name = f"{impl}-cache-hit"
+        launches[name] = hits[impl]["launches"]
+        numbers[name] = {k: v for k, v in hits[impl].items()
+                         if k not in ("logits", "launches")}
+        print(f"{name}: launches {launches[name]}; "
+              f"{json.dumps(numbers[name])}", flush=True)
+    check(hits["ragged"]["h2d_bytes"] == 0
+          and hits["ragged"]["w_copy_bytes"] == 0,
+          f"ragged cache-hit steps moved {hits['ragged']}")
+    check(hits["grouped"]["h2d_bytes"] == 0
+          and hits["grouped"]["w_copy_bytes"] > 0,
+          "grouped cache-hit steps: expected 0 h2d and a weight copy, got "
+          f"{numbers['grouped-cache-hit']}")
+    check(same_logits(torch, hits["ragged"], hits["grouped"]),
+          "grouped cache-hit logits differ from the ragged ones")
+    n_hit = 3 * 3 * n_moe                 # steps x projections x layers
+    check(launches["ragged-cache-hit"]["slab_gemm"] == n_hit,
+          f"ragged cache-hit steps: {launches['ragged-cache-hit']}")
+    check(launches["grouped-cache-hit"]["grouped_gemm"] == n_hit,
+          f"grouped cache-hit steps: {launches['grouped-cache-hit']}")
+    print("grouped-cache-hit: logits bit-identical to ragged-cache-hit",
+          flush=True)
+    del hits
+
+    # -- (d) measured p-times ----------------------------------------------
+    prof = run_path("profile", PROFILE_STEPS, pool_sizes=POOLS_SMALL,
+                    device_cache=True, profile_p_times=True)
+    pt = prof["p_times"]
+    measured = {k: b for k, b in pt["buckets"].items()
+                if "measured" in b["source"]}
+    check(pt["n_measurements"] > 0 and measured,
+          f"profile_p_times measured no bucket: {pt}")
+    numbers["profile"]["p_time_buckets"] = pt["buckets"]
+    print(f"profile: {pt['n_measurements']} buckets measured in "
+          f"{pt['measure_wall_s'] * 1e3:.1f} ms: {pt['buckets']}", flush=True)
+    return launches, numbers
 
 
 def cfg_moe_layers(cfg):
@@ -469,13 +677,29 @@ def main():
     with tempfile.TemporaryDirectory(prefix="smoke_store_",
                                      dir=ROOT / "build") as tmp:
         launches, e2e = main_path(torch, np, dev, cfg, tmp)
-    for name, r in kres.items():
-        r["launches"] = launches[name]
+    # every kernel runs on some path, and every path runs its kernels; a
+    # kernel's launches are its count on the first path that runs it
+    for path, names in PATH_KERNELS.items():
+        for name in names:
+            check(launches[path][name] > 0,
+                  f"kernel {name} was not launched on the {path} path: "
+                  f"{launches[path]}")
+    for name in _build.LAUNCHES:
+        path = next((p for p, names in PATH_KERNELS.items()
+                     if name in names), None)
+        check(path is not None, f"kernel {name} is on no served path")
+        check(name in kres, f"kernel {name} was not held against its plain "
+              f"version")
+        kres[name]["launches"] = launches[path][name]
+        kres[name]["path"] = path
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     check("jax" not in sys.modules, "jax was imported")
     check(not any(m == "repro" or m.startswith("repro.")
                   for m in sys.modules), "the JAX package was imported")
+    print(json.dumps({"kernel_paths": {k: r["path"]
+                                       for k, r in kres.items()}}),
+          flush=True)
     print(json.dumps({"main_path": e2e, "card": card}), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in kres.values()]}), flush=True)

@@ -44,7 +44,9 @@ fetch: admitting one selected expert can never evict another one mid-step
 
 Payload semantics per cache pool:
   F : reconstructed bf16 tensors (zero work on hit): bf16 bits as uint16
-      ndarrays in host mode, SlotRefs into a device slab in device mode
+      ndarrays in host mode, SlotRefs into a device slab in device mode,
+      the tensors' two bit-planes (the serving layer's ``BitPlanes``) when
+      a ``recover_fn`` defers the splice to a fused GEMM
   C : raw SM bytes + compressed E bytes (decompress + recover on hit)
   S : raw SM bytes (E-chunk reads + decompress + recover on hit)
   E : compressed E bytes (SM read + decompress + recover on hit)
@@ -735,12 +737,15 @@ class ZipMoEEngine:
     def _sm_plane_of(arr) -> Optional[bytes]:
         """Re-derive one tensor's SM plane for F→S demotion, whatever the F
         payload holds: host bf16 bits (cheap numpy bit-split), uploaded
-        DevicePlanes (already split; one plane download), a slab SlotRef
-        (one-time slot download), or a device tensor."""
+        DevicePlanes (already split; one plane download), fused-mode host
+        BitPlanes (already split), a slab SlotRef (one-time slot download),
+        or a device tensor."""
         if isinstance(arr, np.ndarray):
             return bitfield.decompose_np(arr)[1].tobytes()
         if isinstance(arr, DevicePlanes):
             return arr.sm.cpu().numpy().tobytes()
+        if hasattr(arr, "sm"):                 # fused-mode BitPlanes
+            return np.asarray(arr.sm).tobytes()
         if isinstance(arr, SlotRef):
             if not arr.valid:
                 return None

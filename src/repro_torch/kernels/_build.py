@@ -31,7 +31,9 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES: Dict[str, int] = {"splice": 0, "splice_admit": 0, "slab_gemm": 0}
+LAUNCHES: Dict[str, int] = {"splice": 0, "splice_admit": 0, "slab_gemm": 0,
+                            "grouped_gemm": 0, "zip_gemm_grouped": 0,
+                            "zip_gemm": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -104,8 +106,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.zipmoe_splice.argtypes = [vp, vp, vp, ll, vp]
     lib.zipmoe_splice_admit.argtypes = [vp, i, ll, vp, vp, vp]
     lib.zipmoe_slab_gemm.argtypes = [vp, vp, vp, vp, i, i, i, ll, vp]
+    lib.zipmoe_grouped_gemm.argtypes = [vp, vp, vp, i, i, i, i, vp]
+    lib.zipmoe_zip_gemm_grouped.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
+    lib.zipmoe_zip_gemm.argtypes = [vp, vp, vp, vp, i, i, i, vp]
     for fn in (lib.zipmoe_splice, lib.zipmoe_splice_admit,
-               lib.zipmoe_slab_gemm):
+               lib.zipmoe_slab_gemm, lib.zipmoe_grouped_gemm,
+               lib.zipmoe_zip_gemm_grouped, lib.zipmoe_zip_gemm):
         fn.restype = i
     return lib
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import bitfield
 from repro_torch.kernels import moe_gemm, recovery, ref
 
 
@@ -74,6 +75,44 @@ def recover_bf16_device(exp_np, sm_np, shape, device) -> torch.Tensor:
     exp = host_u8(exp_np).to(device)
     sm = host_u8(sm_np).to(device)
     return recover_bf16(exp, sm, shape)
+
+
+def recover_bf16_host(exp_np, sm_np, shape, device) -> np.ndarray:
+    """Host planes in, host bf16 BITS (uint16 ndarray) out, spliced on
+    `device` (the kernel on the card).  Pays a download; only for consumers
+    that need a host array — the grouped GEMM uses
+    :func:`recover_bf16_device`."""
+    return bitfield.to_bits(recover_bf16_device(exp_np, sm_np, shape,
+                                                device))
+
+
+def grouped_expert_gemm(x: torch.Tensor, w: torch.Tensor
+                        ) -> torch.Tensor:  # hot-path
+    """Padded grouped expert GEMM: x [E, C, d] @ w [E, d, f] -> [E, C, f],
+    f32 accumulation (C a multiple of 8 on the card)."""
+    if _on_cuda(x, w):
+        return moe_gemm.grouped_gemm(x, w)
+    return ref.moe_gemm_ref(x, w)
+
+
+def zip_gemm_batch(x: torch.Tensor, exp: torch.Tensor, sm: torch.Tensor
+                   ) -> torch.Tensor:  # hot-path
+    """Batched fused recovery + GEMM over every active expert of a step:
+    x [E, C, d] against u8 bit-planes exp/sm [E, d, f] -> [E, C, f].  One
+    launch replaces :func:`fused_zip_gemm`'s per-expert loop."""
+    if _on_cuda(x, exp, sm):
+        return moe_gemm.zip_gemm_grouped(x, exp, sm)
+    return ref.zip_gemm_grouped_ref(x, exp, sm)
+
+
+def fused_zip_gemm(x: torch.Tensor, exp: torch.Tensor, sm: torch.Tensor
+                   ) -> torch.Tensor:
+    """Fused recovery + GEMM for one expert: x [C, d] against planes
+    exp/sm [d, f] -> [C, f]; bit-equal to :func:`zip_gemm_batch` on the
+    same expert."""
+    if _on_cuda(x, exp, sm):
+        return moe_gemm.zip_gemm(x, exp, sm)
+    return ref.zip_gemm_grouped_ref(x[None], exp[None], sm[None])[0]
 
 
 def slab_gemm(x: torch.Tensor, buf: torch.Tensor, tile_slot, *,

@@ -26,6 +26,22 @@ def decompose_bf16_ref(x: torch.Tensor):
     return exp.reshape(x.shape), sm.reshape(x.shape)
 
 
+def moe_gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Grouped expert GEMM: x [E, C, d] @ w [E, d, f] -> [E, C, f], summed
+    in f32 and rounded once to x's dtype.  (On the CPU, f32 ``bmm`` gives
+    each row the same bits whether the rows ride as [E, C] or as the ragged
+    GEMM's 8-row tiles; tests/test_torch_grouped.py pins grouped ≡ ragged
+    end to end.)"""
+    return torch.bmm(x.float(), w.float()).to(x.dtype)
+
+
+def zip_gemm_grouped_ref(x: torch.Tensor, exp: torch.Tensor,
+                         sm: torch.Tensor) -> torch.Tensor:
+    """Batched fused recovery + GEMM: splice the u8 planes [E, d, f], then
+    the grouped GEMM."""
+    return moe_gemm_ref(x, recover_bf16_ref(exp, sm))
+
+
 def slab_gemm_ref(x: torch.Tensor, buf: torch.Tensor, tile_slot,
                   block_c: int = 8) -> torch.Tensor:
     """Slot-indexed ragged grouped GEMM: per token tile of ``block_c`` rows,

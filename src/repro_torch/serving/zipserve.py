@@ -35,13 +35,27 @@ decompression + bit-splice recovery) before the FFN runs.
   — a fully cache-hit decode step moves **zero** expert-weight bytes
   host→device and stages **zero** weight-copy bytes
   (``overlap_summary()['h2d_bytes']`` / ``['w_copy_bytes']``).
+* **Padded grouped FFN** (``ffn_impl="grouped"``) — the step's tokens are
+  gathered into an [E_active, C, d] batch (C the largest group, bucketed)
+  and pushed through ``kernels/ops.grouped_expert_gemm``; the active
+  experts' weights are stacked first (a slab gather on a cache-hit device
+  step, charged to ``w_copy_bytes``).  Bit-identical to the ragged path:
+  every GEMM row is one f32 sum in k order and the combine is the same
+  gather-sum.  ``ffn_impl="loop"`` is the per-token, per-slot oracle in
+  plain ``torch.matmul``.
+* **Fused recovery** (``fused_recovery=True``) — the engine hands back the
+  raw bit-planes (:class:`BitPlanes`) and ONE ``zip_gemm_batch`` launch per
+  projection splices them to bf16 in registers inside the GEMM, so no bf16
+  weight is written to device memory; ``ffn_impl="loop"`` runs the same
+  kernel once per expert (``fused_zip_gemm``), bit-equal to the batch.
+* **Measured p-times** (``profile_p_times=True``) — Algorithm 1 sorts by
+  per-expert grouped-GEMM times measured on the card on first use of each
+  (layer, expert-count, token-column) bucket and refined from the real FFN
+  wall time, instead of class constants.
 
-Not ported yet (they raise ``NotImplementedError``): the padded
-``"grouped"`` and per-token ``"loop"`` FFNs (their kernel is the grouped
-GEMM), ``fused_recovery`` (the fused splice+GEMM kernels),
-``profile_p_times`` (its runner needs the grouped GEMM), ``mem_budget``
-live planning and the multi-device peer tier (``mesh_devices``), and
-continuous batching (``decode_rows``).
+Not ported yet (they raise ``NotImplementedError``): ``mem_budget`` live
+planning, the multi-device peer tier (``mesh_devices``), and continuous
+batching (``decode_rows``).
 
 ``ZipServer.decode_step`` is validated against the fully-resident
 ``models.decode_step`` and against the JAX package's ``ZipServer``.
@@ -49,6 +63,7 @@ continuous batching (``decode_rows``).
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -61,11 +76,34 @@ from repro_torch.core.profiles import GemmProfiler
 from repro_torch.core.slab import SlotRef
 from repro_torch.core.store import EXPERT_TENSORS, ExpertStore
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ops import bucket_rows, slab_gemm
+from repro_torch.kernels.moe_gemm import BLOCK_C
+from repro_torch.kernels.ops import (bucket_rows, fused_zip_gemm,
+                                     grouped_expert_gemm, recover_bf16_host,
+                                     slab_gemm, zip_gemm_batch)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import apply_mlp, apply_norm, silu
 from repro_torch.models.model import init_cache
 from repro_torch.models.moe import route
+
+
+@dataclass
+class BitPlanes:
+    """A tensor kept as its ZipMoE bit-planes (fused-recovery mode)."""
+    exp: np.ndarray          # u8, flat
+    sm: np.ndarray           # u8, flat
+    shape: Tuple[int, ...]
+
+
+def _planes_recover(exp: np.ndarray, sm, shape) -> BitPlanes:
+    """Engine recover hook that skips the splice: the fused GEMM does it."""
+    sm_arr = (np.frombuffer(sm, np.uint8)
+              if isinstance(sm, (bytes, bytearray)) else np.asarray(sm))
+    return BitPlanes(np.asarray(exp), sm_arr, tuple(shape))
+
+
+def _gelu(x):
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
 
 class ZipServer:
     # cross_layer_depth="auto" tuning knobs: adjust once per window of
@@ -78,6 +116,7 @@ class ZipServer:
     def __init__(self, params, cfg, store_path: str, *, L: int = 4,
                  pool_sizes: Optional[Dict[str, int]] = None,
                  bandwidth_gbps: Optional[float] = None,
+                 device_recovery: bool = False,
                  prefetch: bool = True, prefetch_width: Optional[int] = None,
                  ffn_impl: str = "ragged", fused_recovery: bool = False,
                  cache_mode: str = "hier", flat_capacity: Optional[int] = None,
@@ -88,13 +127,12 @@ class ZipServer:
                  mem_budget: Optional[float] = None, mesh_devices: int = 1,
                  verify: Optional[bool] = None, faults=None,
                  fetch_deadline_s: Optional[float] = 120.0, device=None):
-        if ffn_impl != "ragged":
-            raise NotImplementedError(
-                f"ffn_impl={ffn_impl!r}: only the slot-indexed ragged FFN is "
-                f"ported (the grouped GEMM kernel is not)")
-        for name, on in (("fused_recovery", fused_recovery),
-                         ("profile_p_times", profile_p_times),
-                         ("mem_budget", mem_budget is not None),
+        """``device_recovery`` (the JAX package's ``use_pallas_recovery``)
+        splices host-mode recoveries with the splice kernel on `device`
+        instead of numpy: the grouped/ragged FFNs then take the spliced
+        tensor on the device, the ``"loop"`` oracle downloads it."""
+        assert ffn_impl in ("ragged", "grouped", "loop"), ffn_impl
+        for name, on in (("mem_budget", mem_budget is not None),
                          ("mesh_devices", mesh_devices != 1)):
             if on:
                 raise NotImplementedError(f"{name} is not ported yet")
@@ -104,12 +142,17 @@ class ZipServer:
         if self._auto_depth:
             cross_layer_depth = 0
         assert cross_layer_depth >= 0
+        assert not (device_cache and fused_recovery), \
+            "fused_recovery keeps weights as host bit-planes; device_cache " \
+            "keeps them spliced on device — pick one"
         self.device = resolve_device(device)
         self.cfg = cfg
         self.prefetch = prefetch
         self.prefetch_width = prefetch_width
         self.ffn_impl = ffn_impl
+        self.fused_recovery = fused_recovery
         self.device_cache = device_cache
+        self.profile_p_times = profile_p_times
         self.cross_layer_depth = cross_layer_depth
         self._depth_events: List[Dict[str, float]] = []
         self._depth_steps = 0
@@ -121,18 +164,33 @@ class ZipServer:
         self.globals = {k: v for k, v in params.items() if k != "layers"}
         store = ExpertStore(store_path, bandwidth_gbps=bandwidth_gbps,
                             verify=verify, faults=faults)
+        recover = None
+        if fused_recovery:
+            recover = _planes_recover
+        elif device_recovery and not device_cache and ffn_impl == "loop":
+            dev = self.device
+            recover = (lambda e, sm, shape:      # host-loop oracle: numpy
+                       recover_bf16_host(e, sm, shape, dev))
         self.engine = ZipMoEEngine(
             store, n_experts=max(1, cfg.n_experts), n_layers=cfg.n_layers,
-            L=L, pool_sizes=pool_sizes, cache_mode=cache_mode,
-            flat_capacity=flat_capacity, flat_policy=flat_policy,
-            delta=delta, freq_decay=freq_decay, device_cache=device_cache,
-            device=self.device, fetch_deadline_s=fetch_deadline_s)
+            L=L, pool_sizes=pool_sizes, recover_fn=recover,
+            cache_mode=cache_mode, flat_capacity=flat_capacity,
+            flat_policy=flat_policy, delta=delta, freq_decay=freq_decay,
+            device_cache=device_cache, device=self.device,
+            fetch_deadline_s=fetch_deadline_s)
+        if device_recovery and not device_cache and ffn_impl != "loop":
+            # the grouped/ragged GEMM consumes the spliced tensor on the
+            # device — keep it there, through the engine's counting hook so
+            # the plane uploads and splice time land in h2d_bytes/splice_ms
+            self.engine.recover = self.engine._recover_device
         self.engine.profile()
         if cache_window:
             self.engine.enable_cache_windows(cache_window)
-        # constant-p scheduling: p-times stay the engine's class constants
-        # until the measured-p profiler's runner is ported
+        # measured per-expert grouped-GEMM times feeding Algorithm 1's p_n
+        # (constant-p scheduling when profile_p_times is off: p_times=None
+        # falls back to the engine's class constants)
         self.profiler = GemmProfiler(default_p=ZipMoEEngine._DEMAND_P)
+        self._gemm_runners: Dict[int, object] = {}   # layer -> runner|None
         # strip routed expert weights from the resident copy (they live on disk)
         for lp in self.layers:
             if "ffn" in lp and "router" in lp["ffn"]:
@@ -214,6 +272,84 @@ class ZipServer:
             out.append(j)
         return out
 
+    # ------------------------------------------------------------------
+    # profiled p-times (GemmProfiler -> Algorithm 1's p_n)
+    # ------------------------------------------------------------------
+    def _sync(self):
+        """Wait for the device's queued work (timed FFN runs)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _gemm_runner(self, layer_idx: int):
+        """Measurement closure for the profiler: runs one representative
+        grouped FFN of this layer's expert shapes on the device, from
+        seeded random inputs (an untimed warm-up run first, then one timed
+        run ended by a device synchronise)."""
+        groups = self.engine.store.groups
+        experts = [e for (l, e) in groups if l == layer_idx]
+        if not experts:
+            return None
+        shapes = {t.name: tuple(t.shape)
+                  for t in groups[(layer_idx, min(experts))].tensors}
+        if "w_up" not in shapes or "w_down" not in shapes:
+            return None
+        dev = self.device
+
+        def run(ne: int, cols: int) -> float:
+            g = torch.Generator(device=dev).manual_seed(0)
+            d, f = shapes["w_up"]
+            # the kernel takes whole 8-row tiles: fewer columns run one
+            rows = -(-cols // BLOCK_C) * BLOCK_C
+
+            def rnd(*shape):
+                return torch.randn(shape, generator=g, device=dev).to(
+                    torch.bfloat16)
+
+            x, wu, wd = rnd(ne, rows, d), rnd(ne, d, f), rnd(ne, f, d)
+            wg = rnd(ne, d, f) if "w_gate" in shapes else None
+
+            def once():
+                h = silu(grouped_expert_gemm(x, wg)) * \
+                    grouped_expert_gemm(x, wu) if wg is not None \
+                    else _gelu(grouped_expert_gemm(x, wu))
+                return grouped_expert_gemm(h, wd)
+
+            once()
+            self._sync()
+            t0 = time.perf_counter()
+            once()
+            self._sync()
+            return time.perf_counter() - t0
+
+        return run
+
+    def _exec_group_size(self, layer_idx: int, batch: int) -> int:
+        """Expected number of experts that execute *together* in one of this
+        layer's decode steps — the profiler's bucket key: the step's last
+        observed selection size, falling back to the batch top-k bound."""
+        last = self._last_ids.get(layer_idx)
+        if last:
+            return len(last)
+        return max(1, min(self.cfg.n_experts, batch * self.cfg.top_k))
+
+    def _p_times_for(self, layer_idx: int, ids: List[int], batch: int
+                     ) -> Optional[Dict[int, float]]:
+        """Measured per-expert p_n for one submission part, or None for the
+        engine's class constants (constant-p scheduling).  The runner is
+        built once per layer and only handed over when the bucket is not
+        yet cached — this sits on the decode hot path."""
+        if not self.profile_p_times or not ids:
+            return None
+        cols = max(1, batch * self.cfg.top_k)
+        group = self._exec_group_size(layer_idx, batch)
+        runner = None
+        if not self.profiler.has(layer_idx, group, cols):
+            if layer_idx not in self._gemm_runners:
+                self._gemm_runners[layer_idx] = self._gemm_runner(layer_idx)
+            runner = self._gemm_runners[layer_idx]
+        p = self.profiler.p_time(layer_idx, group, cols, runner=runner)
+        return {int(e): p for e in ids}
+
     def _drain(self, layer_idx: int) -> int:
         """Collect finished prediction jobs of `layer_idx` on the decode
         thread: their unused tails are admitted to the cache pools (warming
@@ -253,14 +389,17 @@ class ZipServer:
                 if self.prefetch else [])
         parts = []
         if demand_ids or pred:
-            parts.append((layer_idx, demand_ids, pred, None))
+            parts.append((layer_idx, demand_ids, pred,
+                          self._p_times_for(layer_idx,
+                                            list(demand_ids) + pred, batch)))
         extra: List[Tuple[int, List[int]]] = []
         if self.prefetch and self.cross_layer_depth:
             for j in self._moe_layers_after(layer_idx,
                                             self.cross_layer_depth):
                 pred_j = self._predict(j, batch, self._in_flight(j))
                 if pred_j:
-                    parts.append((j, [], pred_j, None))
+                    parts.append((j, [], pred_j,
+                                  self._p_times_for(j, pred_j, batch)))
                     extra.append((j, pred_j))
         if not parts:
             return None
@@ -316,7 +455,9 @@ class ZipServer:
         # prediction jobs: `missing` is disjoint from every in-flight
         # prediction by construction, and the urgent job jumps the I/O
         # queue so it overlaps their tails
-        h_m = (self.engine.prefetch_experts(layer_idx, missing)
+        h_m = (self.engine.prefetch_experts(
+                   layer_idx, missing,
+                   self._p_times_for(layer_idx, missing, batch))
                if missing else None)
         if h_m is not None and self.prefetch:
             self._pending.setdefault(layer_idx, []).append(
@@ -351,7 +492,9 @@ class ZipServer:
             lost = [e for e in ids if e not in weights]
             if lost:
                 ov["fault_refetches"] += 1
-                h_r = self.engine.prefetch_experts(layer_idx, lost)
+                h_r = self.engine.prefetch_experts(
+                    layer_idx, lost, self._p_times_for(layer_idx, lost,
+                                                       batch))
                 w_r, fs_r = h_r.result()
                 weights.update(w_r)
                 io_bytes += fs_r.io_bytes
@@ -436,16 +579,39 @@ class ZipServer:
                                          windows=windows)
 
     def p_time_summary(self) -> Dict[str, object]:
-        """Measured p-time buckets feeding Algorithm 1 (empty: constant-p
-        scheduling in this port so far)."""
+        """Measured p-time buckets feeding Algorithm 1 (empty when
+        ``profile_p_times`` is off)."""
         return self.profiler.summary()
 
     # ------------------------------------------------------------------
-    # the slot-indexed ragged FFN
+    # expert FFN implementations
     # ------------------------------------------------------------------
+    def _ffn_loop(self, x, top_p: np.ndarray, top_i: np.ndarray, weights):
+        """Per-token, per-slot loop (validation oracle): plain
+        ``torch.matmul`` on bf16 with a bf16 running sum, as the JAX
+        package's loop computes it outside any kernel."""
+        cfg = self.cfg
+        B = x.shape[0]
+        ti = top_i.reshape(B, cfg.top_k)
+        tp = top_p.reshape(B, cfg.top_k)
+        ys = []
+        for b in range(B):   # loop-ok: validation oracle path
+            xb = x[b:b + 1]
+            acc = torch.zeros_like(xb)
+            for slot in range(cfg.top_k):
+                w = {k: self._as_weight(v)
+                     for k, v in weights[int(ti[b, slot])].items()}
+                h = silu(xb @ w["w_gate"]) * (xb @ w["w_up"]) \
+                    if "w_gate" in w else _gelu(xb @ w["w_up"])
+                gate = torch.tensor(float(tp[b, slot]), dtype=x.dtype,
+                                    device=x.device)
+                acc = acc + gate * (h @ w["w_down"])
+            ys.append(acc)
+        return torch.cat(ys)
+
     def _assign_by_expert(self, top_p: np.ndarray, top_i: np.ndarray, ids):
-        """Per-expert (token row, gate) lists in ``ids`` order — the CSR
-        front half of the gather tables."""
+        """Per-expert (token row, gate) lists in ``ids`` order — the shared
+        front half of both gather builders."""
         cfg = self.cfg
         B = top_i.shape[0]
         ti = top_i.reshape(B, cfg.top_k)
@@ -456,6 +622,29 @@ class ZipServer:
             for slot in range(cfg.top_k):
                 assign[row[int(ti[b, slot])]].append((b, float(tp[b, slot])))
         return assign, B
+
+    def _gather_by_expert(self, top_p, top_i, ids):
+        """Token->expert tables for the PADDED grouped batch.
+
+        Returns (gather [Ea, C] int64 token rows, padded with the zero token
+        B; gates [Ea, C] f32 routing weights, 0 on pads; rows_of [B, k]
+        int64: each token's k positions in the flattened [Ea·C] layout,
+        ascending).  C is the largest group bucketed to a fixed rung
+        (``bucket_rows``, at least 8), so the set of GEMM shapes stays small
+        and the kernel's 8-row tiles divide it."""
+        assign, B = self._assign_by_expert(top_p, top_i, ids)
+        C = bucket_rows(max(len(a) for a in assign))
+        gather = np.full((len(ids), C), B, np.int64)   # B = zero-pad token
+        gates = np.zeros((len(ids), C), np.float32)
+        rows_of: List[List[int]] = [[] for _ in range(B)]
+        for r, a in enumerate(assign):
+            for c, (b, g) in enumerate(a):
+                gather[r, c] = b
+                gates[r, c] = g
+                rows_of[b].append(r * C + c)
+        self.overlap_stats["tokens_real"] += sum(len(a) for a in assign)
+        self.overlap_stats["tokens_padded"] += len(ids) * C
+        return gather, gates, np.asarray(rows_of, np.int64)
 
     def _gather_by_expert_ragged(self, top_p, top_i, ids, block_c: int = 8):
         """CSR token->expert tables for the slot-indexed ragged GEMM.
@@ -490,6 +679,35 @@ class ZipServer:
         self.overlap_stats["tokens_padded"] += T
         return gather, gates, tile_row, np.asarray(rows_of, np.int64)
 
+    @staticmethod
+    def _gathered_tokens(x, gather: np.ndarray) -> torch.Tensor:
+        """x [B, 1, d] -> x rows at `gather` (B = the zero pad token),
+        shaped ``gather.shape + (d,)``."""
+        B, _, d = x.shape
+        xf = x.reshape(B, d)
+        xpad = torch.cat([xf, xf.new_zeros(1, d)])
+        idx = torch.from_numpy(gather.reshape(-1)).to(x.device)
+        return xpad.index_select(0, idx).reshape(*gather.shape, d)
+
+    @staticmethod
+    def _combine(x, eout: torch.Tensor, gates: np.ndarray,
+                 rows_of: np.ndarray) -> torch.Tensor:
+        """Gate-weighted sum of each token's k expert outputs.  eout: [N, d]
+        GEMM rows; gates: [N] f32; rows_of: [B, k] ascending positions into
+        them.  Token b adds its k contributions in ascending position,
+        starting from the first — the per-destination order of the JAX
+        package's scatter-add on the CPU, and deterministic on the card (no
+        atomics).  Every FFN path but the loop oracle combines here, so
+        they agree bit for bit when their GEMM rows do."""
+        B, _, d = x.shape
+        dev = x.device
+        contrib = torch.from_numpy(gates).to(dev)[:, None] * eout.float()
+        idx = torch.from_numpy(rows_of).to(dev)                   # [B, k]
+        comb = contrib.index_select(0, idx[:, 0])
+        for j in range(1, idx.shape[1]):  # loop-ok: top-k slots, not experts
+            comb = comb + contrib.index_select(0, idx[:, j])
+        return comb.to(x.dtype).reshape(B, 1, d)
+
     def _as_weight(self, v) -> torch.Tensor:
         """One expert tensor as a device tensor: slab slots read in place,
         device tensors pass through, host bf16 bits pay (and are charged)
@@ -501,6 +719,39 @@ class ZipServer:
             return bitfield.from_bits(v).to(self.device)
         return v
 
+    def _stack(self, vals) -> torch.Tensor:  # hot-path
+        """[Ea, ...] stack of expert tensors on the device, charged to
+        ``w_copy_bytes`` (host bf16 bits also pay the upload, ``h2d_bytes``)."""
+        # host-sync-ok: fallback — host/mixed steps stage a weight copy
+        w = torch.stack([self._as_weight(v) for v in vals])
+        self.engine.count_w_copy(w.numel() * w.element_size())
+        return w
+
+    @staticmethod
+    def _one_slab(vals):
+        """The slab every value is a valid SlotRef into, else None.  A
+        stale ref falls through to ``_as_weight``, whose ``read()``
+        asserts: it is never read as the slot's new occupant."""
+        if vals and all(isinstance(v, SlotRef) for v in vals):
+            slab = vals[0].slab
+            if all(v.slab is slab and v.valid for v in vals):
+                return slab
+        return None
+
+    def _stack_weights(self, name: str, weights, ids) -> torch.Tensor:  # hot-path
+        """[Ea, d, f] stacked expert weights for the grouped GEMM.  With
+        every selected expert in the SAME layer slab, one device gather
+        copies them out of it — zero weight bytes cross host→device, but
+        the copy is charged to ``w_copy_bytes`` (the staging the ragged
+        path avoids)."""
+        vals = [weights[e][name] for e in ids]
+        slab = self._one_slab(vals)
+        if slab is None:
+            return self._stack(vals)
+        w = slab.gather(name, [v.slot for v in vals])  # gen-checked: _one_slab
+        self.engine.count_w_copy(w.numel() * w.element_size())
+        return w
+
     def _slab_sources(self, name: str, weights, ids):  # hot-path
         """(buffer, slots) weight source for the slot-indexed ragged GEMM.
 
@@ -511,22 +762,42 @@ class ZipServer:
         stacked [Ea, ...] batch (charged to ``w_copy_bytes``) indexed by
         stack row."""
         vals = [weights[e][name] for e in ids]
-        if vals and all(isinstance(v, SlotRef) for v in vals):
-            slab = vals[0].slab
-            if all(v.slab is slab and v.valid for v in vals):
-                return (slab.bufs[name],
-                        # host-sync-ok: host slot-index vector, no transfer
-                        np.asarray([v.slot for v in vals], np.int32))
-        # host-sync-ok: fallback — mixed/host steps stage a weight copy
-        w = torch.stack([self._as_weight(v) for v in vals])
-        self.engine.count_w_copy(w.numel() * w.element_size())
-        return w, np.arange(len(ids), dtype=np.int32)
+        slab = self._one_slab(vals)
+        if slab is not None:
+            return (slab.bufs[name],
+                    # host-sync-ok: host slot-index vector, no transfer
+                    np.asarray([v.slot for v in vals], np.int32))
+        return self._stack(vals), np.arange(len(ids), dtype=np.int32)
 
     def _note_gemm_shape(self, *key):
         """Count DISTINCT expert-GEMM shape keys (see ``bucket_rows``)."""
         if key not in self._gemm_shapes:
             self._gemm_shapes.add(key)
             self.overlap_stats["gemm_compiles"] += 1
+
+    @staticmethod
+    def _expert_mlp(gemm, a, weights, ids, src):
+        """The expert MLP through one GEMM callable per projection:
+        ``gemm(a, src(name))``."""
+        if "w_gate" in weights[ids[0]]:
+            h = silu(gemm(a, src("w_gate"))) * gemm(a, src("w_up"))
+        else:
+            h = _gelu(gemm(a, src("w_up")))
+        return gemm(h, src("w_down"))
+
+    def _ffn_grouped(self, x, top_p, top_i, weights, ids):  # hot-path
+        """Gather-by-expert padded batch [Ea, C, d] on the grouped-GEMM
+        kernel.  Bit-identical to ``_ffn_ragged``: every GEMM row is one f32
+        sum in k order whatever the batching, and the combine is the same
+        gather-sum in the same per-token order."""
+        gather, gates, rows_of = self._gather_by_expert(top_p, top_i, ids)
+        xg = self._gathered_tokens(x, gather)                # [Ea, C, d]
+        self._note_gemm_shape("grouped", *gather.shape)
+        eout = self._expert_mlp(
+            grouped_expert_gemm, xg, weights, ids,
+            lambda name: self._stack_weights(name, weights, ids))
+        return self._combine(x, eout.reshape(-1, x.shape[-1]),
+                             gates.reshape(-1), rows_of)
 
     def _ffn_ragged(self, x, top_p, top_i, weights, ids):  # hot-path
         """Slot-indexed ragged grouped FFN — the megakernel hot path.
@@ -535,41 +806,69 @@ class ZipServer:
         count bucketed); the kernel reads each expert's weights straight
         out of the slab buffer by the per-tile slot vector — zero
         weight-copy bytes on the all-slab-resident fast path
-        (``_slab_sources``).  The combine is a gather-sum: token b adds its
-        k contributions in ascending CSR position, starting from the first
-        — the per-destination order of the JAX package's scatter-add on the
-        CPU, and deterministic on the card (no atomics)."""
-        B, _, d = x.shape
-        block_c = 8
+        (``_slab_sources``)."""
         gather, gates, tile_row, rows_of = self._gather_by_expert_ragged(
-            top_p, top_i, ids, block_c)
-        dev = x.device
-        xf = x.reshape(B, d)
-        xpad = torch.cat([xf, xf.new_zeros(1, d)])
-        xg = xpad.index_select(0, torch.from_numpy(gather).to(dev))  # [T, d]
+            top_p, top_i, ids, BLOCK_C)
+        xg = self._gathered_tokens(x, gather)                # [T, d]
         self._note_gemm_shape("ragged", gather.size)
 
         def sg(a, src):                                    # one kernel launch
             buf, slots = src
-            return slab_gemm(a, buf, slots[tile_row], block_c=block_c)
+            return slab_gemm(a, buf, slots[tile_row], block_c=BLOCK_C)
 
-        if "w_gate" in weights[ids[0]]:
-            h = silu(sg(xg, self._slab_sources("w_gate", weights, ids))) * \
-                sg(xg, self._slab_sources("w_up", weights, ids))
-        else:
-            h = torch.nn.functional.gelu(
-                sg(xg, self._slab_sources("w_up", weights, ids)),
-                approximate="tanh")
-        eout = sg(h, self._slab_sources("w_down", weights, ids))   # [T, d]
-        contrib = torch.from_numpy(gates).to(dev)[:, None] * eout.float()
-        idx = torch.from_numpy(rows_of).to(dev)                   # [B, k]
-        comb = contrib.index_select(0, idx[:, 0])
-        for j in range(1, idx.shape[1]):  # loop-ok: top-k slots, not experts
-            comb = comb + contrib.index_select(0, idx[:, j])
-        return comb.to(x.dtype).reshape(B, 1, d)
+        eout = self._expert_mlp(
+            sg, xg, weights, ids,
+            lambda name: self._slab_sources(name, weights, ids))
+        return self._combine(x, eout, gates, rows_of)
+
+    def _planes_to_device(self, ps: List[BitPlanes]):
+        """Upload bit-planes [len(ps), D, F] (u8 exp, u8 sm) and charge
+        them to ``h2d_bytes``: 2 B per weight element."""
+        D, F = ps[0].shape
+        exp = np.stack([p.exp.reshape(D, F) for p in ps])
+        sm = np.stack([p.sm.reshape(D, F) for p in ps])
+        self.engine.count_h2d(exp.nbytes + sm.nbytes)
+        return (torch.from_numpy(exp).to(self.device),
+                torch.from_numpy(sm).to(self.device))
+
+    def _ffn_zip_gemm(self, x, top_p, top_i, weights, ids):
+        """Fused recovery+GEMM, ONE batched launch per projection: expert
+        weights stay u8 bit-planes and ``zip_gemm_batch`` splices them to
+        bf16 in registers inside the GEMM, for every active expert of the
+        step at once.  Plane uploads are charged to ``h2d_bytes``."""
+        gather, gates, rows_of = self._gather_by_expert(top_p, top_i, ids)
+        xg = self._gathered_tokens(x.to(torch.bfloat16), gather)
+        self._note_gemm_shape("zip", *gather.shape)
+        eout = self._expert_mlp(
+            lambda a, pl: zip_gemm_batch(a, *pl), xg, weights, ids,
+            lambda name: self._planes_to_device(
+                [weights[e][name] for e in ids]))
+        return self._combine(x, eout.reshape(-1, x.shape[-1]),
+                             gates.reshape(-1), rows_of)
+
+    def _ffn_zip_loop(self, x, top_p, top_i, weights, ids):
+        """Per-expert fused recovery+GEMM (one ``fused_zip_gemm`` launch per
+        expert and projection), bit-equal to :meth:`_ffn_zip_gemm`: the same
+        kernel rows and the same combine.  Plane uploads are charged to
+        ``h2d_bytes``."""
+        gather, gates, rows_of = self._gather_by_expert(top_p, top_i, ids)
+        xg = self._gathered_tokens(x.to(torch.bfloat16), gather)
+
+        def zg(a, pl):
+            exp, sm = pl
+            return fused_zip_gemm(a, exp[0], sm[0])
+
+        outs = []
+        for r, e in enumerate(ids):   # loop-ok: the per-expert fused path
+            outs.append(self._expert_mlp(
+                zg, xg[r], weights, [e],
+                lambda name: self._planes_to_device([weights[e][name]])))
+        eout = torch.stack(outs)                             # [Ea, C, d]
+        return self._combine(x, eout.reshape(-1, x.shape[-1]),
+                             gates.reshape(-1), rows_of)
 
     def _zip_moe_ffn(self, lp, x, layer_idx: int):
-        """x: [B, 1, d].  Router -> engine fetch -> ragged expert FFN."""
+        """x: [B, 1, d].  Router -> engine fetch -> expert FFN."""
         cfg = self.cfg
         ffn = lp["ffn"]
         top_p, top_i, _ = route(ffn["router"], x, cfg)       # [B,1,k]
@@ -604,7 +903,26 @@ class ZipServer:
             raise StepFault(layer_idx, failed, rows or range(B), exc) \
                 from exc
         fetch_s = time.perf_counter() - t0
-        y = self._ffn_ragged(x, tp, ti, weights, ids)
+        t_ffn = time.perf_counter()
+        if self.fused_recovery:
+            y = (self._ffn_zip_loop if self.ffn_impl == "loop"
+                 else self._ffn_zip_gemm)(x, tp, ti, weights, ids)
+        elif self.ffn_impl == "loop":
+            y = self._ffn_loop(x, tp, ti, weights)
+        elif self.ffn_impl == "grouped":
+            y = self._ffn_grouped(x, tp, ti, weights, ids)
+        else:
+            y = self._ffn_ragged(x, tp, ti, weights, ids)
+        if self.profile_p_times:
+            # refine the measured bucket with the *actual* expert FFN wall
+            # time (EMA), at the cost of one device synchronise per MoE
+            # layer.  Only already-measured buckets are refined: observed-
+            # only buckets the scheduler never reads would pile up.
+            cols = max(1, B * cfg.top_k)
+            if self.profiler.has(layer_idx, len(ids), cols):
+                self._sync()
+                self.profiler.record(layer_idx, len(ids), cols,
+                                     time.perf_counter() - t_ffn)
         if "shared" in ffn:
             y = y + apply_mlp(ffn["shared"], x, cfg)
         self.stats.append({"layer": layer_idx, "fetch_s": fetch_s,
@@ -624,7 +942,7 @@ class ZipServer:
         tokens = torch.as_tensor(tokens, device=self.device).long()
         x = p["embed"]["tok"][tokens]
         # loop-ok: per-LAYER structure (hot-path bans per-EXPERT loops;
-        # expert work inside goes through the ragged-GEMM path)
+        # expert work inside goes through the grouped-GEMM kernels)
         for idx, (lp, cache) in enumerate(zip(self.layers, caches)):
             h = apply_norm(lp["norm1"], x, cfg)
             y, _ = attn_lib.gqa_decode(lp["attn"], h, cfg, cache["kv"], pos)

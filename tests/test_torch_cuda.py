@@ -5,9 +5,12 @@ a CUDA device (the build also needs ``nvcc``).  Run on a machine with an
 H100 with ``python -m pytest -q tests/test_torch_cuda.py``.  This file
 imports nothing of JAX, so it runs where JAX is not installed.
 
-Tolerances: the splices are bit-exact; the ragged GEMM sums in f32 in
-another order than the plain ``bmm``, and both round once to bf16, so
-outputs agree to 2^-7 of the largest |output| (one or two bf16 ulps).
+Tolerances: the splices are bit-exact; the GEMMs sum in f32 in another
+order than the plain ``bmm``, and both round once to bf16, so outputs
+agree to 2^-7 of the largest |output| (one or two bf16 ulps).  Between the
+kernels themselves the tests are bitwise: every GEMM kernel computes a row
+as one f32 sum in k order, so grouped ≡ ragged and batched fused ≡
+per-expert fused.
 """
 import numpy as np
 import pytest
@@ -110,10 +113,11 @@ def test_slab_gemm_rejects_unaligned_weights(cuda):
 
 
 def test_zipserver_on_card_launches_kernels(cuda, tmp_path):
-    """Smoke-size ZipServer on the card: all three kernels launch, and the
-    logits match the resident model on the card within 2% of the largest
-    |logit| (bf16 sums in other orders), the tolerance of the CPU parity
-    tests."""
+    """Smoke-size ZipServer on the card, device slabs and the ragged FFN:
+    the path's three kernels (splice, splice-admit, ragged GEMM) launch,
+    and the logits match the resident model on the card within 2% of the
+    largest |logit| (bf16 sums in other orders), the tolerance of the CPU
+    parity tests."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.store import build_store
     from repro_torch.models import decode_step, init_cache, init_params
@@ -135,6 +139,137 @@ def test_zipserver_on_card_launches_kernels(cuda, tmp_path):
             assert err <= 0.02 * rl.float().abs().max().item(), (i, err)
             tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
         torch.cuda.synchronize()
-        assert all(n > 0 for n in _build.LAUNCHES.values()), _build.LAUNCHES
+        assert all(_build.LAUNCHES[k] > 0 for k in
+                   ("splice", "splice_admit", "slab_gemm")), _build.LAUNCHES
+    finally:
+        zs.close()
+
+
+# (E, C, d, f): odd expert counts, 8/16/136-row groups, served widths
+GROUPED = [(3, 8, 2048, 1408), (5, 16, 1408, 2048), (7, 136, 96, 64),
+           (1, 8, 24, 64), (3, 16, 2048, 64), (5, 8, 64, 1408)]
+
+
+def _grouped_inputs(E, C, d, f):
+    g = torch.Generator().manual_seed(E * 1000 + C + d + f)
+    x = torch.randn((E, C, d), generator=g).to(torch.bfloat16)
+    x[:, C // 2:] = 0                           # padded rows
+    w = (torch.randn((E, d, f), generator=g) * 0.05).to(torch.bfloat16)
+    exp, sm = bitfield.decompose(w)
+    return x, w, exp.view(E, d, f), sm.view(E, d, f)
+
+
+def _close(got, want):
+    err = (got.float().cpu() - want.float()).abs().max().item()
+    assert err <= GEMM_REL_TOL * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("E,C,d,f", GROUPED)
+def test_grouped_gemm_vs_plain_and_ragged(cuda, E, C, d, f):
+    x, w, _, _ = _grouped_inputs(E, C, d, f)
+    xd, wd = x.to(cuda), w.to(cuda)
+    _build.reset_launches()
+    got = ops.grouped_expert_gemm(xd, wd)
+    assert _build.LAUNCHES["grouped_gemm"] == 1
+    _close(got, ref.moe_gemm_ref(x, w))
+    assert torch.all(got[:, C // 2:] == 0)
+    # the same rows through the slab kernel, one slot per expert's tiles
+    ts = np.repeat(np.arange(E, dtype=np.int32), C // 8)
+    rag = moe_gemm.slab_ragged_gemm(xd.view(E * C, d), wd, ts)
+    assert _same(got.view(E * C, f), rag)
+
+
+@pytest.mark.parametrize("E,C,d,f", GROUPED)
+def test_zip_gemms_vs_plain_and_each_other(cuda, E, C, d, f):
+    x, w, exp, sm = _grouped_inputs(E, C, d, f)
+    xd, ed, sd = x.to(cuda), exp.to(cuda), sm.to(cuda)
+    _build.reset_launches()
+    got = ops.zip_gemm_batch(xd, ed, sd)
+    _close(got, ref.zip_gemm_grouped_ref(x, exp, sm))
+    # fused splice == splice then GEMM, bit for bit
+    assert _same(got, moe_gemm.grouped_gemm(xd, w.to(cuda)))
+    for e in range(E):
+        assert _same(ops.fused_zip_gemm(xd[e], ed[e], sd[e]), got[e])
+    assert _build.LAUNCHES["zip_gemm_grouped"] == 1
+    assert _build.LAUNCHES["zip_gemm"] == E
+
+
+def test_grouped_and_zip_reject_what_the_kernel_cannot_take(cuda):
+    """C % 8, f % 8, misaligned operands and mismatched shapes raise before
+    launch; nothing is counted."""
+    bf, u8 = torch.bfloat16, torch.uint8
+    x = torch.zeros((2, 8, 16), dtype=bf, device=cuda)
+    w = torch.zeros((2, 16, 16), dtype=bf, device=cuda)
+    p = torch.zeros((2, 16, 16), dtype=u8, device=cuda)
+    _build.reset_launches()
+    x12 = torch.zeros((2, 12, 16), dtype=bf, device=cuda)
+    for bad in (lambda: moe_gemm.grouped_gemm(x12, w),
+                lambda: moe_gemm.zip_gemm_grouped(x12, p, p),
+                lambda: moe_gemm.zip_gemm(x12[0], p[0], p[0])):
+        with pytest.raises(ValueError, match="8-row"):
+            bad()
+    w12 = torch.zeros((2, 16, 12), dtype=bf, device=cuda)
+    p12 = torch.zeros((2, 16, 12), dtype=u8, device=cuda)
+    for bad in (lambda: moe_gemm.grouped_gemm(x, w12),
+                lambda: moe_gemm.zip_gemm_grouped(x, p12, p12),
+                lambda: moe_gemm.zip_gemm(x[0], p12[0], p12[0])):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            bad()
+    wflat = torch.zeros(2 * 16 * 16 + 1, dtype=bf, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        moe_gemm.grouped_gemm(x, wflat[1:].view(2, 16, 16))
+    pflat = torch.zeros(2 * 16 * 16 + 1, dtype=u8, device=cuda)
+    pm = pflat[1:].view(2, 16, 16)
+    with pytest.raises(ValueError, match="8-byte"):
+        moe_gemm.zip_gemm_grouped(x, pm, p)
+    with pytest.raises(ValueError, match="8-byte"):
+        moe_gemm.zip_gemm(x[0], p[0], pm[0])
+    with pytest.raises(ValueError, match="match"):
+        moe_gemm.grouped_gemm(x, torch.zeros((3, 16, 16), dtype=bf,
+                                             device=cuda))
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_gemm.grouped_gemm(x, w.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_gemm.zip_gemm_grouped(x, p.cpu(), p)
+    assert all(n == 0 for n in _build.LAUNCHES.values()), _build.LAUNCHES
+
+
+@pytest.mark.parametrize("mode,kernel", [
+    (dict(ffn_impl="grouped"), "grouped_gemm"),
+    (dict(ffn_impl="grouped", device_cache=True), "grouped_gemm"),
+    (dict(ffn_impl="grouped", fused_recovery=True), "zip_gemm_grouped"),
+    (dict(ffn_impl="loop", fused_recovery=True), "zip_gemm"),
+    (dict(profile_p_times=True), "grouped_gemm"),
+], ids=["grouped-host", "grouped-device", "fused-batched", "fused-loop",
+        "profile"])
+def test_zipserver_new_paths_launch_kernels(cuda, tmp_path, mode, kernel):
+    """Smoke-size ZipServer on the card through each FFN path this slice
+    added: its kernel launches, and the logits match the resident model on
+    the card within 2% of the largest |logit|."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.store import build_store
+    from repro_torch.models import decode_step, init_cache, init_params
+    from repro_torch.serving.zipserve import ZipServer
+    cfg = get_smoke_config("qwen2-moe-a2.7b", n_layers=2)
+    params = init_params(cfg, seed=0, device=cuda)
+    build_store(params, cfg, str(tmp_path), device=cuda)
+    zs = ZipServer(params, cfg, str(tmp_path), L=2,
+                   pool_sizes={"F": 2, "C": 2, "S": 2, "E": 2}, device=cuda,
+                   **mode)
+    try:
+        B = 2
+        caches, rcache = zs.init_cache(B, 4), init_cache(cfg, B, 4, cuda)
+        tok = torch.zeros((B, 1), dtype=torch.long, device=cuda)
+        _build.reset_launches()
+        for i in range(4):
+            lg, caches = zs.decode_step(tok, caches, i)
+            rl, rcache = decode_step(params, cfg, tok, rcache, i)
+            err = (lg.float() - rl.float()).abs().max().item()
+            assert err <= 0.02 * rl.float().abs().max().item(), (i, err)
+            tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[kernel] > 0, _build.LAUNCHES
+        if mode.get("profile_p_times"):
+            assert zs.p_time_summary()["n_measurements"] > 0
     finally:
         zs.close()

@@ -9,7 +9,10 @@ Tolerances: splices and slab writes are bit-exact.  The ragged GEMM sums
 in f32 in another order than the Pallas kernel (whole-d ``bmm`` vs
 ``block_d`` partial sums), so f32 outputs agree to f32 round-off
 (rtol 1e-5) and bf16 outputs, rounded once from those sums, to one bf16
-ulp (rtol 2^-7).
+ulp (rtol 2^-7).  The grouped and fused GEMMs are held bit for bit where
+the Pallas kernel takes the whole contraction in one block (as the JAX
+package's own zip_gemm_grouped test does), and to one bf16 ulp where it
+splits d into blocks.
 """
 import numpy as np
 import pytest
@@ -137,6 +140,79 @@ def test_ops_dispatchers_on_cpu_match_jax_dispatchers():
                                atol=1e-4)
 
 
+# (E, C, d, f, block_d): one contraction block, then split contractions
+GROUPED_SHAPES = [(3, 8, 16, 32, 16), (3, 8, 64, 48, 64),
+                  (2, 8, 128, 128, 128), (4, 16, 256, 128, 128),
+                  (1, 8, 512, 256, 128)]
+
+
+def _check_gemm(got: torch.Tensor, want, d: int, block_d: int):
+    got = got.float().numpy()
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    if block_d == d:
+        assert np.array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=2.0 ** -7, atol=1e-4)
+
+
+def _grouped_inputs(seed, E, C, d, f):
+    rng = np.random.default_rng(seed)
+    x = jnp.asarray(rng.standard_normal((E, C, d)), jnp.bfloat16)
+    w = jnp.asarray(rng.standard_normal((E, d, f)) * 0.05, jnp.bfloat16)
+    exp, sm = jref.decompose_bf16_ref(w)
+    tx = torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+    tw = torch.from_numpy(np.asarray(w, np.float32)).to(torch.bfloat16)
+    return (x, w, exp, sm), (tx, tw, torch.from_numpy(np.array(exp)),
+                             torch.from_numpy(np.array(sm)))
+
+
+@pytest.mark.parametrize("E,C,d,f,bd", GROUPED_SHAPES)
+def test_grouped_gemm_plain_vs_pallas_interpret(E, C, d, f, bd):
+    (x, w, _, _), (tx, tw, _, _) = _grouped_inputs(4, E, C, d, f)
+    want = jmoe.grouped_gemm(x, w, block_c=8, block_d=bd,
+                             block_f=min(f, 128), interpret=True)
+    _check_gemm(ref.moe_gemm_ref(tx, tw), want, d, bd)
+    _check_gemm(ops.grouped_expert_gemm(tx, tw), want, d, bd)
+
+
+@pytest.mark.parametrize("E,C,d,f,bd", GROUPED_SHAPES)
+def test_zip_gemm_grouped_plain_vs_pallas_interpret(E, C, d, f, bd):
+    (x, _, exp, sm), (tx, _, te, ts) = _grouped_inputs(5, E, C, d, f)
+    want = jmoe.zip_gemm_grouped(x, exp, sm, block_c=8, block_d=bd,
+                                 block_f=min(f, 128), interpret=True)
+    _check_gemm(ref.zip_gemm_grouped_ref(tx, te, ts), want, d, bd)
+    _check_gemm(ops.zip_gemm_batch(tx, te, ts), want, d, bd)
+
+
+@pytest.mark.parametrize("C,d,f,bd", [(8, 16, 32, 16), (8, 256, 128, 128),
+                                      (16, 512, 256, 128)])
+def test_zip_gemm_plain_vs_pallas_interpret(C, d, f, bd):
+    (x, _, exp, sm), (tx, _, te, ts) = _grouped_inputs(6, 1, C, d, f)
+    want = jmoe.zip_gemm(x[0], exp[0], sm[0], block_c=8, block_d=bd,
+                         block_f=min(f, 128), interpret=True)
+    _check_gemm(ops.fused_zip_gemm(tx[0], te[0], ts[0]), want, d, bd)
+
+
+def test_fused_dispatchers_match_jax_dispatchers():
+    """The port's CPU dispatchers against the JAX package's: the batched
+    fused GEMM bit for bit, the per-expert one equal to the batch row, the
+    host recovery hook returning the same bf16 bits."""
+    (x, _, exp, sm), (tx, _, te, ts) = _grouped_inputs(7, 3, 8, 24, 40)
+    want = np.asarray(jops.zip_gemm_batch(x, exp, sm), np.float32)
+    got = ops.zip_gemm_batch(tx, te, ts)
+    assert np.array_equal(got.float().numpy(), want)
+    for e in range(3):
+        one = ops.fused_zip_gemm(tx[e], te[e], ts[e])
+        assert np.array_equal(_bits(one), _bits(got[e]))
+    flat_e = np.asarray(exp[1]).reshape(-1)
+    flat_s = np.asarray(sm[1]).reshape(-1)
+    host = ops.recover_bf16_host(flat_e, flat_s.tobytes(), (24, 40), "cpu")
+    assert host.dtype == np.uint16 and host.shape == (24, 40)
+    assert np.array_equal(host, _bits(jops.recover_bf16_host(
+        flat_e, flat_s.tobytes(), (24, 40))))
+
+
 def test_bucket_rows_matches_reference():
     for n in list(range(0, 300)) + [1000, 4097]:
         for align in (1, 8):
@@ -157,6 +233,18 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                   buf, np.zeros(1, np.int32))
     with pytest.raises(TypeError):
         recovery.recover_bf16(np.zeros(64, np.uint8), e)
+
+
+def test_grouped_and_zip_wrappers_refuse_cpu_tensors():
+    x = torch.zeros((2, 8, 16), dtype=torch.bfloat16)
+    w = torch.zeros((2, 16, 8), dtype=torch.bfloat16)
+    p = torch.zeros((2, 16, 8), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_gemm.grouped_gemm(x, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_gemm.zip_gemm_grouped(x, p, p)
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_gemm.zip_gemm(x[0], p[0], p[0])
 
 
 def test_dispatch_rejects_mixed_devices():
