@@ -15,7 +15,11 @@ failure exits non-zero:
    main path's shapes, and timed with CUDA events (median of 25 samples
    after warm-up) beside its plain version, one PyTorch call computing the
    same function where there is one, and its bound on an H100 SXM
-   (3.35 TB/s, 989 TFLOP/s bf16 dense).
+   (3.35 TB/s, 989 TFLOP/s bf16 dense).  The GEMMs also show their share
+   of the bound, each instantiation's registers and spills from
+   ``nvcc -Xptxas -v``, the grouped GEMM timed with its contraction
+   slices both walked by one CTA and spread over CTAs (the bits are held
+   equal), and a repeated ``zip_gemm`` launch held bit-equal.
 3. The main path at full width: qwen2-moe-a2.7b with every width as
    published, depth cut to 2 layers, seeded random weights.  Build ONE
    compressed store (groups compressed in parallel), check every expert
@@ -45,6 +49,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -243,9 +248,13 @@ def kernel_phase(torch, np, dev, cfg):
         ts_d = torch.from_numpy(ts).to(dev)
         ts_l = ts_d.long()
         o = torch.empty((T, ff), dtype=torch.bfloat16, device=dev)
+        # sa keeps the bounds and scratch alive for the raw pointers in
+        # sargs, taken once so that the timed calls hold no Python work
+        sa = moe_gemm.split_args(T // 8, dd, ff, dev)
+        sargs = sa.args
         times["ms"] += med_ms(lambda: lib.zipmoe_slab_gemm(
             x.data_ptr(), wb.data_ptr(), ts_d.data_ptr(), o.data_ptr(),
-            T // 8, dd, ff, dd * ff, stream), torch)
+            T // 8, dd, ff, dd * ff, *sargs, stream), torch)
         times["plain_ms"] += med_ms(lambda: ref.slab_gemm_ref(x, wb, ts),
                                     torch)
         times["library_ms"] += med_ms(lambda: torch.bmm(
@@ -291,9 +300,31 @@ def kernel_phase(torch, np, dev, cfg):
               f"error {err} > {GEMM_REL_TOL} x {scale}")
         a = acc["grouped_gemm"]
         a["err"] = max(a["err"], err)
-        a["ms"] += med_ms(lambda: lib.zipmoe_grouped_gemm(
+        sa = moe_gemm.split_args(n_e * C // 8, dd, ff, dev)
+        sargs = sa.args
+        own_ms = med_ms(lambda: lib.zipmoe_grouped_gemm(
             x.data_ptr(), wb.data_ptr(), o.data_ptr(), n_e, C, dd, ff,
-            stream), torch)
+            *sargs, stream), torch)
+        a["ms"] += own_ms
+        # the other distribution of the same slices: the same bits
+        other = moe_gemm.split_args(n_e * C // 8, dd, ff, dev,
+                                    spread=not sa.spread)
+        oargs = other.args
+        o.zero_()
+        check(lib.zipmoe_grouped_gemm(
+            x.data_ptr(), wb.data_ptr(), o.data_ptr(), n_e, C, dd, ff,
+            *oargs, stream) == 0, "grouped GEMM launch refused")
+        check(torch.equal(o.view(torch.int16), k.view(torch.int16)),
+              f"grouped GEMM [{dd}->{ff}] differs between its slice "
+              f"distributions")
+        alt_ms = med_ms(lambda: lib.zipmoe_grouped_gemm(
+            x.data_ptr(), wb.data_ptr(), o.data_ptr(), n_e, C, dd, ff,
+            *oargs, stream), torch)
+        dist = {True: "spread", False: "walked"}
+        print(f"grouped GEMM [{n_e}, {C}, {dd}] x [{n_e}, {dd}, {ff}]: "
+              f"{len(sa.bounds) - 1} slices {dist[sa.spread]} (the "
+              f"wrapper's choice) {own_ms:.6g} ms, "
+              f"{dist[other.spread]} {alt_ms:.6g} ms, bit-equal", flush=True)
         a["plain_ms"] += med_ms(lambda: ref.moe_gemm_ref(x, wb), torch)
         a["library_ms"] += med_ms(lambda: torch.bmm(x, wb), torch)
         a["bytes"] += 2.0 * n_e * (C * dd + dd * ff + C * ff)
@@ -311,7 +342,7 @@ def kernel_phase(torch, np, dev, cfg):
         a["err"] = max(a["err"], err)
         a["ms"] += med_ms(lambda: lib.zipmoe_zip_gemm_grouped(
             x.data_ptr(), e8.data_ptr(), s8.data_ptr(), o.data_ptr(), n_e, C,
-            dd, ff, stream), torch)
+            dd, ff, *sargs, stream), torch)
         a["plain_ms"] += med_ms(lambda: ref.zip_gemm_grouped_ref(x, e8, s8),
                                 torch)
         a["bytes"] += 2.0 * n_e * (C * dd + dd * ff + C * ff)
@@ -323,23 +354,58 @@ def kernel_phase(torch, np, dev, cfg):
             check(torch.equal(one.view(torch.int16), kz[e].view(torch.int16)),
                   f"zip_gemm expert {e} [{dd}->{ff}] differs from its row "
                   f"of zip_gemm_grouped")
+        # a repeated launch gives the same bits, whatever order its CTAs
+        # (slices spread over them) arrive in
+        reps = [moe_gemm.zip_gemm(x[5], e8[5], s8[5]) for _ in range(10)]
+        check(all(torch.equal(r_.view(torch.int16), kz[5].view(torch.int16))
+                  for r_ in reps), f"zip_gemm [{dd}->{ff}] differs between "
+              f"repeated launches")
         a = acc["zip_gemm"]
         a["err"] = max(a["err"], acc["zip_gemm_grouped"]["err"])
+        one_sa = moe_gemm.split_args(C // 8, dd, ff, dev)
+        one_args = one_sa.args
+        ptrs = [(x[e].data_ptr(), e8[e].data_ptr(), s8[e].data_ptr(),
+                 o[e].data_ptr()) for e in range(n_e)]
 
-        def zip_one():
-            e = it[0] % n_e
-            it[0] += 1
-            lib.zipmoe_zip_gemm(x[e].data_ptr(), e8[e].data_ptr(),
-                                s8[e].data_ptr(), o[e].data_ptr(), C, dd, ff,
-                                stream)
+        def zip_rotating(split):
+            def launch():
+                p_ = ptrs[it[0] % n_e]
+                it[0] += 1
+                lib.zipmoe_zip_gemm(*p_, C, dd, ff, *split, stream)
+            return launch
+
+        zip_one = zip_rotating(one_args)
 
         def zip_one_plain():
             e = it[0] % n_e
             it[0] += 1
             ref.zip_gemm_grouped_ref(x[e:e + 1], e8[e:e + 1], s8[e:e + 1])
 
-        a["ms"] += med_ms(zip_one, torch)
+        one_ms = med_ms(zip_one, torch)
+        a["ms"] += one_ms
         a["plain_ms"] += med_ms(zip_one_plain, torch)
+        # the same launches with one CTA walking every slice (what the
+        # wrapper does at E = 16): the same bits, and the host's own time
+        # per launch, which a one-tile launch comes close to
+        walk_sa = moe_gemm.split_args(C // 8, dd, ff, dev, spread=False)
+        walk_args = walk_sa.args
+        o.zero_()
+        check(lib.zipmoe_zip_gemm(*ptrs[5], C, dd, ff, *walk_args,
+                                  stream) == 0, "zip_gemm launch refused")
+        check(torch.equal(o[5].view(torch.int16), kz[5].view(torch.int16)),
+              f"zip_gemm [{dd}->{ff}] differs between its slice "
+              f"distributions")
+        walk_ms = med_ms(zip_rotating(walk_args), torch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            zip_one()
+        host_ms = (time.perf_counter() - t0) / 200 * 1e3
+        torch.cuda.synchronize()
+        print(f"zip_gemm one tile [{dd}->{ff}]: {len(one_sa.bounds) - 1} "
+              f"slices spread (the wrapper's choice) {one_ms:.6g} ms, "
+              f"walked {walk_ms:.6g} ms, bit-equal; the host takes "
+              f"{host_ms:.6g} ms to launch one", flush=True)
         a["bytes"] += 2.0 * (C * dd + dd * ff + C * ff)
         a["flops"] += 2.0 * C * dd * ff
         print(f"grouped / zip GEMMs [{n_e}, {C}, {dd}] x [{n_e}, {dd}, {ff}]: "
@@ -359,7 +425,33 @@ def kernel_phase(torch, np, dev, cfg):
             plain_ms=a["plain_ms"], bound_ms=bms, bound_by=by,
             # no single PyTorch call splices and multiplies
             library_ms=a["library_ms"] if name == "grouped_gemm" else None)
+    share = {n: res[n]["bound_ms"] / res[n]["ms"] for n in
+             ("slab_gemm", "grouped_gemm", "zip_gemm_grouped", "zip_gemm")}
+    print(json.dumps({"gemm_bound_share": share,
+                      "gemm_ptxas": ptxas_usage(_build)}), flush=True)
     return res
+
+
+def ptxas_usage(_build):
+    """Registers and spill bytes of each GEMM instantiation, from the
+    build's ``nvcc -Xptxas -v`` log."""
+    log = (Path(_build.BUILD_INFO["path"]).parent / "ptxas.log").read_text()
+    out = {}
+    for entry in log.split("Compiling entry function")[1:]:
+        src = re.search(r"gemm_kernel\w*?([A-Z][a-z]+Source)", entry)
+        if src is None:
+            continue
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", entry)
+        check(regs is not None and spill is not None,
+              f"ptxas log has no register line for {src.group(1)}")
+        out[src.group(1)] = {"registers": int(regs.group(1)),
+                             "spill_stores": int(spill.group(1)),
+                             "spill_loads": int(spill.group(2))}
+    check(len(out) == 3, f"ptxas log names {sorted(out)}, expected the "
+          f"three GEMM instantiations")
+    return out
 
 
 # ----------------------------------------------------------------------------

@@ -105,10 +105,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.zipmoe_splice.argtypes = [vp, vp, vp, ll, vp]
     lib.zipmoe_splice_admit.argtypes = [vp, i, ll, vp, vp, vp]
-    lib.zipmoe_slab_gemm.argtypes = [vp, vp, vp, vp, i, i, i, ll, vp]
-    lib.zipmoe_grouped_gemm.argtypes = [vp, vp, vp, i, i, i, i, vp]
-    lib.zipmoe_zip_gemm_grouped.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
-    lib.zipmoe_zip_gemm.argtypes = [vp, vp, vp, vp, i, i, i, vp]
+    split = [vp, i, i, vp, vp]          # bounds, slices, spread, scratch
+    lib.zipmoe_slab_gemm.argtypes = [vp, vp, vp, vp, i, i, i, ll, *split,
+                                     vp]
+    lib.zipmoe_grouped_gemm.argtypes = [vp, vp, vp, i, i, i, i, *split, vp]
+    lib.zipmoe_zip_gemm_grouped.argtypes = [vp, vp, vp, vp, i, i, i, i,
+                                            *split, vp]
+    lib.zipmoe_zip_gemm.argtypes = [vp, vp, vp, vp, i, i, i, *split, vp]
     for fn in (lib.zipmoe_splice, lib.zipmoe_splice_admit,
                lib.zipmoe_slab_gemm, lib.zipmoe_grouped_gemm,
                lib.zipmoe_zip_gemm_grouped, lib.zipmoe_zip_gemm):

@@ -1,6 +1,6 @@
 """Expert compute for the H100 as hand-written CUDA kernels
-(``csrc/moe_gemm.cu``), one tiled GEMM body with four weight sources plus
-the slab splice-admit:
+(``csrc/moe_gemm.cu``), one tensor-core GEMM body with four weight sources
+plus the slab splice-admit:
 
 * ``slab_ragged_gemm`` — x [T, d] (tokens CSR-concatenated by expert, each
   group padded to an 8-row tile) against the WHOLE per-layer slab
@@ -10,7 +10,7 @@ the slab splice-admit:
 * ``grouped_gemm`` — the padded batch x [E, C, d] @ w [E, d, f].  Replaces
   the Pallas ``grouped_gemm``.
 * ``zip_gemm_grouped`` / ``zip_gemm`` — fused recovery + GEMM: the weights
-  arrive as the two u8 bit-planes and are spliced to bf16 in registers
+  arrive as the two u8 bit-planes and are spliced to bf16 in shared memory
   inside the GEMM, for every active expert at once ([E, C, d] against
   planes [E, d, f]) or for one expert ([C, d] against [d, f], the batched
   kernel at E = 1).  Replace the Pallas ``zip_gemm_grouped`` and
@@ -22,9 +22,12 @@ the slab splice-admit:
   keeps its bytes.  Replaces the JAX package's aliased
   ``slab_splice_admit``.
 
-Every GEMM output element is one f32 sum in ascending k, so a row's result
+Every GEMM cuts its contraction by :func:`split_plan`, a function of K
+alone, and sums an output's slices left to right, so a row's result
 depends on its own inputs only: the ragged and grouped GEMMs agree bit for
-bit, and so do the batched and per-expert fused ones.
+bit, and so do the batched and per-expert fused ones.  Whether each slice
+gets its own CTA (:func:`spreads`) changes where the slices are added, not
+the bits.
 
 These wrappers take CUDA tensors only and raise on anything else; call them
 through ``kernels/ops.py``, which runs the plain versions
@@ -32,12 +35,115 @@ through ``kernels/ops.py``, which runs the plain versions
 """
 from __future__ import annotations
 
+import threading
+from typing import Dict, NamedTuple, Optional, Tuple
+
 import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 
 BLOCK_C = 8      # token rows per tile, fixed by the kernel
+BLOCK_F = 64     # output columns per CTA, fixed by the kernel
+CHUNK_ROWS = 64  # contraction rows per ring stage, fixed by the kernel
+SLICE_CHUNKS = 8     # chunks per contraction slice, at most: S = ceil(K / 512)
+MAX_SLICES = 64      # the kernel's SlicePlan capacity
+# spread the slices over CTAs when one CTA per (tile, 64 columns) would
+# put fewer than this many CTAs on each SM
+SPREAD_BELOW_CTAS_PER_SM = 2
+
+
+def split_plan(k: int) -> Tuple[int, ...]:
+    """The fixed split of a k-row contraction: S + 1 ascending row bounds
+    from 0 to k, the interior ones on 64-row chunk boundaries, with
+    S = ceil(k / 512) (at least 1) and the chunks dealt out evenly.
+
+    A function of k alone: every GEMM kernel adds an output's slices in
+    this order whatever its weight source, expert count or tile count, which
+    is what keeps the kernels bit-equal to each other."""
+    if k < 0:
+        raise ValueError(f"contraction length {k} < 0")
+    chunks = -(-k // CHUNK_ROWS)
+    s = max(1, -(-chunks // SLICE_CHUNKS))
+    if s > MAX_SLICES:
+        raise ValueError(f"contraction of {k} rows needs {s} slices; the "
+                         f"kernel takes at most {MAX_SLICES} "
+                         f"({MAX_SLICES * SLICE_CHUNKS * CHUNK_ROWS} rows)")
+    return tuple(min(k, i * chunks // s * CHUNK_ROWS) for i in range(s + 1))
+
+
+def spreads(n_tiles: int, f: int, n_slices: int, sm_count: int) -> bool:
+    """Whether a launch gives each contraction slice its own CTA (f32
+    partials in a scratch, added by the last CTA to arrive) instead of one
+    CTA walking every slice of its (tile, 64 columns).  Only the launch's
+    parallelism changes: the slices are added in the same order."""
+    walkers = n_tiles * -(-f // BLOCK_F)
+    return n_slices > 1 and walkers < SPREAD_BELOW_CTAS_PER_SM * sm_count
+
+
+class SplitArgs(NamedTuple):
+    """The split arguments of one GEMM launch; holds the host bounds and
+    the scratch alive while the launch is built."""
+    bounds: np.ndarray                  # int32 [S + 1]
+    spread: bool
+    partial: Optional[torch.Tensor]     # f32 [S * rows * f] when spread
+    counters: Optional[torch.Tensor]    # int32 zeros, one per output tile
+
+    @property
+    def args(self) -> tuple:
+        """The C entry points' trailing arguments before the stream."""
+        ptr = (lambda t: t.data_ptr() if t is not None else None)
+        return (self.bounds.ctypes.data, self.bounds.size - 1,
+                int(self.spread), ptr(self.partial), ptr(self.counters))
+
+
+_ws_lock = threading.Lock()
+# (device index, stream) -> {"partial": f32, "counters": zeroed int32};
+# launches on one stream run in order, and each leaves its counters zeroed
+_workspace: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}  # guarded-by: _ws_lock
+_sm_count: Dict[int, int] = {}  # guarded-by: _ws_lock
+
+
+def _index(device: torch.device) -> int:
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
+
+
+def _sms(device: torch.device) -> int:
+    """The card's SM count (cached per device)."""
+    idx = _index(device)
+    with _ws_lock:
+        if idx not in _sm_count:
+            _sm_count[idx] = torch.cuda.get_device_properties(
+                idx).multi_processor_count
+        return _sm_count[idx]
+
+
+def split_args(n_tiles: int, k: int, f: int, device: torch.device,
+               spread: Optional[bool] = None) -> SplitArgs:
+    """The plan, distribution and workspace of one launch of n_tiles
+    8-row tiles over a k-row contraction into f columns on `device`'s
+    current stream.  `spread` overrides :func:`spreads` (to time or test
+    both distributions; the bits are the same)."""
+    bounds = np.asarray(split_plan(k), np.int32)
+    n = bounds.size - 1
+    if spread is None:
+        spread = spreads(n_tiles, f, n, _sms(device))
+    if not (spread and n > 1):
+        return SplitArgs(bounds, False, None, None)
+    idx = _index(device)
+    key = (idx, torch.cuda.current_stream(idx).cuda_stream)
+    n_partial = n * n_tiles * BLOCK_C * f
+    n_count = n_tiles * -(-f // BLOCK_F)
+    with _ws_lock:
+        ws = _workspace.setdefault(key, {})
+        if "partial" not in ws or ws["partial"].numel() < n_partial:
+            ws["partial"] = torch.empty(n_partial, dtype=torch.float32,
+                                        device=torch.device("cuda", idx))
+        if "counters" not in ws or ws["counters"].numel() < n_count:
+            ws["counters"] = torch.zeros(n_count, dtype=torch.int32,
+                                         device=torch.device("cuda", idx))
+        return SplitArgs(bounds, True, ws["partial"], ws["counters"])
 
 
 def _check_rows(rows: int, f: int, what: str) -> None:
@@ -51,6 +157,15 @@ def _check_rows(rows: int, f: int, what: str) -> None:
                          f"time; f={f} must be a multiple of 8")
 
 
+def _check_x(x: torch.Tensor, what: str) -> None:
+    """The kernel stages x rows in 16-byte copies."""
+    d = x.shape[-1]
+    if d % 8 or x.data_ptr() % 16:
+        raise ValueError(f"{what}: the kernel copies x in 16-byte pieces: "
+                         f"d={d} must be a multiple of 8 and x 16-byte "
+                         f"aligned")
+
+
 def _launch(name: str, fn, *args, device) -> None:
     """Launch one kernel on `device`'s current stream, raise on a refused
     launch, and count it."""
@@ -58,6 +173,13 @@ def _launch(name: str, fn, *args, device) -> None:
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, f"zipmoe_{name}")
     _build.LAUNCHES[name] += 1
+
+
+def _launch_gemm(name: str, fn, *args, n_tiles: int, k: int, f: int,
+                 device) -> None:
+    """Launch one GEMM kernel with its split arguments."""
+    sa = split_args(n_tiles, k, f, device)
+    _launch(name, fn, *args, *sa.args, device=device)
 
 
 def slab_ragged_gemm(x: torch.Tensor, buf: torch.Tensor,
@@ -80,6 +202,7 @@ def slab_ragged_gemm(x: torch.Tensor, buf: torch.Tensor,
     if f % 8 or buf.data_ptr() % 16:
         raise ValueError(f"the kernel reads weights in 16-byte loads: f={f} "
                          f"must be a multiple of 8 and buf 16-byte aligned")
+    _check_x(x, "slab_ragged_gemm")
     if isinstance(tile_slot, torch.Tensor):
         if tile_slot.device.type != "cpu":
             raise ValueError("tile_slot must be on the host, so its slots "
@@ -96,9 +219,10 @@ def slab_ragged_gemm(x: torch.Tensor, buf: torch.Tensor,
     if T == 0 or f == 0:            # nothing to launch, nothing to count
         return out
     ts_d = torch.from_numpy(ts).to(x.device)
-    _launch("slab_gemm", _build.library().zipmoe_slab_gemm, x.data_ptr(),
-            buf.data_ptr(), ts_d.data_ptr(), out.data_ptr(), T // BLOCK_C,
-            d, f, d * f, device=x.device)
+    _launch_gemm("slab_gemm", _build.library().zipmoe_slab_gemm,
+                 x.data_ptr(), buf.data_ptr(), ts_d.data_ptr(),
+                 out.data_ptr(), T // BLOCK_C, d, f, d * f,
+                 n_tiles=T // BLOCK_C, k=d, f=f, device=x.device)
     return out
 
 
@@ -120,12 +244,13 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:  # hot-path
     if w.data_ptr() % 16:
         raise ValueError("grouped_gemm: the kernel reads weights in 16-byte "
                          "loads; w must be 16-byte aligned")
+    _check_x(x, "grouped_gemm")
     out = torch.empty((E, C, f), dtype=torch.bfloat16, device=x.device)
     if out.numel() == 0:            # nothing to launch, nothing to count
         return out
-    _launch("grouped_gemm", _build.library().zipmoe_grouped_gemm,
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, d, f,
-            device=x.device)
+    _launch_gemm("grouped_gemm", _build.library().zipmoe_grouped_gemm,
+                 x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, d, f,
+                 n_tiles=E * C // BLOCK_C, k=d, f=f, device=x.device)
     return out
 
 
@@ -144,6 +269,7 @@ def _check_planes(x: torch.Tensor, exp: torch.Tensor, sm: torch.Tensor,
     if exp.data_ptr() % 8 or sm.data_ptr() % 8:
         raise ValueError(f"{what}: the kernel reads each plane in 8-byte "
                          f"loads; exp and sm must be 8-byte aligned")
+    _check_x(x, what)
     return f
 
 
@@ -160,9 +286,10 @@ def zip_gemm_grouped(x: torch.Tensor, exp: torch.Tensor,
     out = torch.empty((E, C, f), dtype=torch.bfloat16, device=x.device)
     if out.numel() == 0:            # nothing to launch, nothing to count
         return out
-    _launch("zip_gemm_grouped", _build.library().zipmoe_zip_gemm_grouped,
-            x.data_ptr(), exp.data_ptr(), sm.data_ptr(), out.data_ptr(), E,
-            C, d, f, device=x.device)
+    _launch_gemm("zip_gemm_grouped",
+                 _build.library().zipmoe_zip_gemm_grouped, x.data_ptr(),
+                 exp.data_ptr(), sm.data_ptr(), out.data_ptr(), E, C, d, f,
+                 n_tiles=E * C // BLOCK_C, k=d, f=f, device=x.device)
     return out
 
 
@@ -178,9 +305,9 @@ def zip_gemm(x: torch.Tensor, exp: torch.Tensor,
     out = torch.empty((C, f), dtype=torch.bfloat16, device=x.device)
     if out.numel() == 0:            # nothing to launch, nothing to count
         return out
-    _launch("zip_gemm", _build.library().zipmoe_zip_gemm, x.data_ptr(),
-            exp.data_ptr(), sm.data_ptr(), out.data_ptr(), C, d, f,
-            device=x.device)
+    _launch_gemm("zip_gemm", _build.library().zipmoe_zip_gemm,
+                 x.data_ptr(), exp.data_ptr(), sm.data_ptr(), out.data_ptr(),
+                 C, d, f, n_tiles=C // BLOCK_C, k=d, f=f, device=x.device)
     return out
 
 

@@ -8,9 +8,11 @@ imports nothing of JAX, so it runs where JAX is not installed.
 Tolerances: the splices are bit-exact; the GEMMs sum in f32 in another
 order than the plain ``bmm``, and both round once to bf16, so outputs
 agree to 2^-7 of the largest |output| (one or two bf16 ulps).  Between the
-kernels themselves the tests are bitwise: every GEMM kernel computes a row
-as one f32 sum in k order, so grouped ≡ ragged and batched fused ≡
-per-expert fused.
+kernels themselves the tests are bitwise: every GEMM kernel adds the
+slices of ``moe_gemm.split_plan(K)`` in order through the same MMA
+sequence, whatever its weight source and however its launch spreads the
+slices, so grouped ≡ ragged, batched fused ≡ per-expert fused, and a
+launch repeated gives the same bits.
 """
 import numpy as np
 import pytest
@@ -72,6 +74,8 @@ def test_splice_admit_in_place(cuda):
     (1408, 2048, [1, 2, 3, 4]),
     (24, 40, [2, 0, 1]),                        # d, f under one block
     (64, 72, [1, 0]),                           # ragged f edge
+    (600, 136, [1, 0, 2]),                      # K off the slice grid
+    (2048, 1408, [4, 1]),                       # two tiles: slices spread
 ])
 def test_slab_gemm_vs_plain(cuda, d, f, ts):
     g = torch.Generator().manual_seed(d + f)
@@ -145,9 +149,14 @@ def test_zipserver_on_card_launches_kernels(cuda, tmp_path):
         zs.close()
 
 
-# (E, C, d, f): odd expert counts, 8/16/136-row groups, served widths
+# (E, C, d, f): odd expert counts, 8/16/136-row groups, served widths;
+# K under one slice and off the slice grid, E = 1 at full width (zip_gemm's
+# launch, slices spread over CTAs), 16 experts x C = 16 (the profiler's
+# buckets; CTAs walk their slices), ragged f edges
 GROUPED = [(3, 8, 2048, 1408), (5, 16, 1408, 2048), (7, 136, 96, 64),
-           (1, 8, 24, 64), (3, 16, 2048, 64), (5, 8, 64, 1408)]
+           (1, 8, 24, 64), (3, 16, 2048, 64), (5, 8, 64, 1408),
+           (1, 8, 2048, 1408), (1, 8, 1408, 2048), (16, 16, 2048, 1408),
+           (3, 8, 600, 136), (2, 8, 40, 72)]
 
 
 def _grouped_inputs(E, C, d, f):
@@ -231,6 +240,84 @@ def test_grouped_and_zip_reject_what_the_kernel_cannot_take(cuda):
         moe_gemm.grouped_gemm(x, w.cpu())
     with pytest.raises(ValueError, match="CUDA"):
         moe_gemm.zip_gemm_grouped(x, p.cpu(), p)
+    assert all(n == 0 for n in _build.LAUNCHES.values()), _build.LAUNCHES
+
+
+def _lib_gemms(xd, wd, ed, sd, spread):
+    """The three GEMM sources through their C entry points with the
+    contraction's slices spread over CTAs or walked by one CTA each."""
+    lib = _build.library()
+    E, C, d = xd.shape
+    f = wd.shape[2]
+    stream = torch.cuda.current_stream().cuda_stream
+    sa = moe_gemm.split_args(E * C // 8, d, f, xd.device, spread=spread)
+    outs = [torch.empty((E, C, f), dtype=torch.bfloat16, device=xd.device)
+            for _ in range(3)]
+    ts = torch.from_numpy(np.repeat(np.arange(E, dtype=np.int32),
+                                    C // 8)).to(xd.device)
+    rcs = [lib.zipmoe_grouped_gemm(xd.data_ptr(), wd.data_ptr(),
+                                   outs[0].data_ptr(), E, C, d, f, *sa.args,
+                                   stream),
+           lib.zipmoe_zip_gemm_grouped(xd.data_ptr(), ed.data_ptr(),
+                                       sd.data_ptr(), outs[1].data_ptr(), E,
+                                       C, d, f, *sa.args, stream),
+           lib.zipmoe_slab_gemm(xd.data_ptr(), wd.data_ptr(), ts.data_ptr(),
+                                outs[2].data_ptr(), E * C // 8, d, f, d * f,
+                                *sa.args, stream)]
+    assert rcs == [0, 0, 0], rcs
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.parametrize("E,C,d,f", [(3, 8, 2048, 1408), (2, 16, 600, 136),
+                                     (16, 8, 1408, 2048)])
+def test_slice_distributions_bit_equal(cuda, E, C, d, f):
+    """Walking the slices in one CTA and spreading them over CTAs (f32
+    partials added by the last CTA) give the same bits, for every weight
+    source."""
+    x, w, exp, sm = _grouped_inputs(E, C, d, f)
+    ops_in = (x.to(cuda), w.to(cuda), exp.to(cuda), sm.to(cuda))
+    walked = _lib_gemms(*ops_in, spread=False)
+    spread = _lib_gemms(*ops_in, spread=True)
+    for a, b in zip(walked + spread, walked[:1] * 6):
+        assert _same(a, b)
+    _close(walked[0], ref.moe_gemm_ref(x, w))
+
+
+def test_repeat_launch_bit_equal(cuda):
+    """A launch repeated on the same inputs gives the same bits, whatever
+    order its CTAs arrive in; the spread launch also leaves its counters
+    zeroed for the next one."""
+    x, w, exp, sm = _grouped_inputs(16, 8, 2048, 1408)
+    xd, wd, ed, sd = x.to(cuda), w.to(cuda), exp.to(cuda), sm.to(cuda)
+    one = [moe_gemm.zip_gemm(xd[3], ed[3], sd[3]) for _ in range(20)]
+    many = [moe_gemm.grouped_gemm(xd, wd) for _ in range(5)]
+    assert moe_gemm.split_args(1, 2048, 1408, cuda).spread
+    assert not moe_gemm.split_args(16, 2048, 1408, cuda).spread
+    assert all(_same(o, one[0]) for o in one)
+    assert all(_same(o, many[0]) for o in many)
+    assert _same(one[0], many[0][3])
+
+
+def test_gemms_reject_unaligned_x(cuda):
+    """The kernel copies x in 16-byte pieces: d % 8 != 0 or a misaligned x
+    raises before launch."""
+    bf, u8 = torch.bfloat16, torch.uint8
+    x12 = torch.zeros((2, 8, 12), dtype=bf, device=cuda)
+    w12 = torch.zeros((2, 12, 16), dtype=bf, device=cuda)
+    p12 = torch.zeros((2, 12, 16), dtype=u8, device=cuda)
+    flat = torch.zeros(2 * 8 * 16 + 1, dtype=bf, device=cuda)
+    xm = flat[1:].view(2, 8, 16)
+    w = torch.zeros((2, 16, 16), dtype=bf, device=cuda)
+    _build.reset_launches()
+    for bad in (lambda: moe_gemm.grouped_gemm(x12, w12),
+                lambda: moe_gemm.zip_gemm_grouped(x12, p12, p12),
+                lambda: moe_gemm.zip_gemm(x12[0], p12[0], p12[0]),
+                lambda: moe_gemm.grouped_gemm(xm, w),
+                lambda: moe_gemm.slab_ragged_gemm(
+                    xm.view(16, 16), w, np.zeros(2, np.int32))):
+        with pytest.raises(ValueError, match="16-byte"):
+            bad()
     assert all(n == 0 for n in _build.LAUNCHES.values()), _build.LAUNCHES
 
 

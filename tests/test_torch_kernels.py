@@ -247,6 +247,63 @@ def test_grouped_and_zip_wrappers_refuse_cpu_tensors():
         moe_gemm.zip_gemm(x[0], p[0], p[0])
 
 
+# the served contraction widths: the smoke config's d_model / d_expert and
+# qwen2-moe-a2.7b's
+@pytest.mark.parametrize("k", [64, 128, 1408, 2048])
+def test_split_plan_served_widths(k):
+    b = moe_gemm.split_plan(k)
+    assert b[0] == 0 and b[-1] == k
+    assert len(b) - 1 == -(-k // 512)
+    assert all(x % moe_gemm.CHUNK_ROWS == 0 for x in b[:-1])
+    assert moe_gemm.split_args(3, k, 8, torch.device("cpu"),
+                               spread=False).bounds.tolist() == list(b)
+
+
+def test_split_plan_slices_every_k():
+    """For every K in 1..4096: ascending non-empty slices on 64-row chunk
+    boundaries, covering [0, K) exactly, S = ceil(K / 512), each at most
+    512 rows, and the same plan on every call (the GEMM kernels hold their
+    bit-equalities only because it depends on K alone)."""
+    for k in range(1, 4097):
+        b = moe_gemm.split_plan(k)
+        assert b[0] == 0 and b[-1] == k
+        assert all(x < y <= x + 512 for x, y in zip(b, b[1:]))
+        assert all(x % moe_gemm.CHUNK_ROWS == 0 for x in b[:-1])
+        assert len(b) - 1 == -(-k // 512)
+        assert b == moe_gemm.split_plan(k)
+
+
+def test_split_plan_limits():
+    assert moe_gemm.split_plan(0) == (0, 0)
+    longest = moe_gemm.MAX_SLICES * moe_gemm.SLICE_CHUNKS * 64
+    assert len(moe_gemm.split_plan(longest)) == moe_gemm.MAX_SLICES + 1
+    with pytest.raises(ValueError, match="slices"):
+        moe_gemm.split_plan(longest + 1)
+    with pytest.raises(ValueError):
+        moe_gemm.split_plan(-1)
+
+
+@pytest.mark.parametrize("n_tiles,f,n_slices,spread", [
+    (1, 1408, 4, True),          # zip_gemm's one tile: 22 CTAs on 132 SMs
+    (1, 2048, 3, True),
+    (16, 1408, 4, False),        # E = 16 x C = 8: 352 CTAs walk their slices
+    (16, 2048, 3, False),
+    (1, 1408, 1, False),         # one slice: nothing to spread
+    (11, 1408, 4, True),         # 242 CTAs: under two per SM
+    (12, 1408, 4, False),        # 264 CTAs: two per SM
+])
+def test_spread_rule(n_tiles, f, n_slices, spread):
+    assert moe_gemm.spreads(n_tiles, f, n_slices, 132) is spread
+
+
+def test_split_args_layout_without_spread():
+    sa = moe_gemm.split_args(16, 2048, 1408, torch.device("cpu"),
+                             spread=False)
+    ptr, n, spread, partial, counters = sa.args
+    assert ptr == sa.bounds.ctypes.data and sa.bounds.dtype == np.int32
+    assert (n, spread, partial, counters) == (4, 0, None, None)
+
+
 def test_dispatch_rejects_mixed_devices():
     with pytest.raises(ValueError):
         ops._on_cuda(torch.zeros(1), torch.zeros(1, device="meta"))
