@@ -12,14 +12,22 @@ failure exits non-zero:
 1. Environment: the card's name and power limit, torch's version, and the
    build of the CUDA kernels from ``src/repro_torch/kernels/csrc``.
 2. Each kernel against its plain PyTorch version on the card, at the
-   main path's shapes, and timed with CUDA events (median of 25 samples
-   after warm-up) beside its plain version, one PyTorch call computing the
-   same function where there is one, and its bound on an H100 SXM
-   (3.35 TB/s, 989 TFLOP/s bf16 dense).  The GEMMs also show their share
-   of the bound, each instantiation's registers and spills from
-   ``nvcc -Xptxas -v``, the grouped GEMM timed with its contraction
-   slices both walked by one CTA and spread over CTAs (the bits are held
-   equal), and a repeated ``zip_gemm`` launch held bit-equal.
+   main path's shapes, and timed with CUDA events beside its plain
+   version, one PyTorch call computing the same function where there is
+   one, and its bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense).
+   Each time is the median of 25 samples of 10 calls that the device runs
+   back to back: every sample is queued behind a device-side wait that
+   outlasts the host's enqueue of its calls (the script fails if it does
+   not), so the events time the device and not the host's launch rate;
+   the host's time to enqueue one call is printed beside it.  The
+   splices' yardsticks are timed too: a bf16 ``copy_`` of a splice's bytes
+   (into one buffer, and into the slab slots the splice-admit writes) and
+   an empty kernel launched back to back.  Each
+   kernel's share of its bound, and its registers, shared memory and
+   spills from ``nvcc -Xptxas -v``, are printed too; the grouped GEMM is
+   timed with its contraction slices both walked by one CTA and spread
+   over CTAs (the bits are held equal), and a repeated ``zip_gemm`` launch
+   is held bit-equal.
 3. The main path at full width: qwen2-moe-a2.7b with every width as
    published, depth cut to 2 layers, seeded random weights.  Build ONE
    compressed store (groups compressed in parallel), check every expert
@@ -47,6 +55,7 @@ failure exits non-zero:
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -84,6 +93,10 @@ GEMM_REL_TOL = 2.0 ** -7
 # whose gates are rounded at other places.  Measured 0.74% of the largest
 # |logit| on the H100; the CPU parity tests hold the port to 2% of it
 LOGIT_REL_TOL = 0.02
+# phase 2's device-side wait before each timed sample (med_ms)
+WAIT_MIN_MS = 1.0
+WAIT_FACTOR = 4.0
+CALIBRATE_WAIT_MS = 50.0
 
 
 def fail(msg: str):
@@ -96,23 +109,77 @@ def check(cond, msg: str):
         fail(msg)
 
 
-def med_ms(fn, torch, samples: int = 25, per: int = 10, warm: int = 5):
-    """Median over `samples` of the mean time of `per` back-to-back calls,
-    from CUDA events, after `warm` untimed calls."""
+def sleep_rate(torch) -> float:
+    """Cycles of ``torch.cuda._sleep`` per millisecond on this card."""
+    cycles = 2_000_000
+    torch.cuda._sleep(cycles)
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    torch.cuda._sleep(cycles)
+    e.record()
+    e.synchronize()
+    return cycles / s.elapsed_time(e)
+
+
+def med_ms(fn, torch, cycles_per_ms: float, samples: int = 25,
+           per: int = 10, warm: int = 5):
+    """Device time of one call of `fn`, and the host's time to enqueue one:
+    medians over `samples` of the mean over `per` calls, after `warm`
+    untimed calls.
+
+    The device runs each sample's `per` calls back to back: a device-side
+    wait (``torch.cuda._sleep``) is queued before the start event, so the
+    host has queued every call before the device reaches the first, and
+    the events time the device, not the host's launch rate.  The wait is
+    WAIT_FACTOR times the host's enqueue of `per` calls behind a long wait
+    (the device busy, as in a sample; the larger of two), and at least
+    WAIT_MIN_MS.  A sample whose enqueue (the wait's own included) outlasts
+    its wait fails the script; so does an `fn` that synchronises with the
+    device."""
+    where = f"chip_smoke.py:{fn.__code__.co_firstlineno}"
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    out = []
-    for _ in range(samples):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
+    busy = []
+    for _ in range(2):
+        torch.cuda._sleep(int(CALIBRATE_WAIT_MS * cycles_per_ms))
+        t0 = time.perf_counter()
         for _ in range(per):
             fn()
-        e.record()
-        e.synchronize()
-        out.append(s.elapsed_time(e) / per)
-    return statistics.median(out)
+        busy.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    wait_ms = max(WAIT_MIN_MS, WAIT_FACTOR * max(busy))
+    cycles = int(wait_ms * cycles_per_ms)
+    dev, host = [], []
+    gc.disable()
+    try:
+        for _ in range(samples):
+            w = torch.cuda.Event(enable_timing=True)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            w.record()
+            torch.cuda._sleep(cycles)
+            s.record()
+            t1 = time.perf_counter()
+            for _ in range(per):
+                fn()
+            e.record()
+            t2 = time.perf_counter()
+            e.synchronize()
+            waited = w.elapsed_time(s)
+            check((t2 - t0) * 1e3 < waited,
+                  f"timing the call at {where}: the host took "
+                  f"{(t2 - t0) * 1e3:.4f} ms to enqueue {per} calls, longer "
+                  f"than the device's {waited:.4f} ms wait (enqueue behind "
+                  f"a long wait: {max(busy):.4f} ms): the events would time "
+                  f"the host")
+            dev.append(s.elapsed_time(e) / per)
+            host.append((t2 - t1) * 1e3 / per)
+    finally:
+        gc.enable()
+    return statistics.median(dev), statistics.median(host)
 
 
 def bound(nbytes: float, flops: float):
@@ -131,6 +198,10 @@ def kernel_phase(torch, np, dev, cfg):
     d, f = cfg.d_model, cfg.d_expert
     g = torch.Generator(device=dev).manual_seed(SEED)
     res = {}
+    rate = sleep_rate(torch)
+
+    def timed(fn):
+        return med_ms(fn, torch, rate)
 
     # -- splice: all 65,536 bit patterns, then full-width tensors ----------
     u = torch.arange(65536, dtype=torch.int32, device=dev).to(torch.int16)
@@ -138,8 +209,9 @@ def kernel_phase(torch, np, dev, cfg):
     got = recovery.recover_bf16(e, s)
     check(torch.equal(got.view(torch.int16), u),
           "splice differs from the bit pattern it should rebuild")
-    sets = []      # 8 distinct full-width planes: 92 MB, more than the L2
-    for _ in range(8):
+    n_sets = 16    # distinct full-width plane pairs: 92 MB, past the L2
+    sets = []
+    for _ in range(n_sets):
         sets.append((torch.randint(0, 256, (d * f,), dtype=torch.uint8,
                                    device=dev, generator=g),
                      torch.randint(0, 256, (d * f,), dtype=torch.uint8,
@@ -155,25 +227,47 @@ def kernel_phase(torch, np, dev, cfg):
     it = [0]
 
     def splice_k():
-        a, b = sets[it[0] % 8]
+        a, b = sets[it[0] % n_sets]
         it[0] += 1
         lib.zipmoe_splice(a.data_ptr(), b.data_ptr(), out.data_ptr(), d * f,
                           stream)
 
     def splice_p():
-        a, b = sets[it[0] % 8]
+        a, b = sets[it[0] % n_sets]
         it[0] += 1
         ref.recover_bf16_ref(a, b)
 
-    ms = med_ms(splice_k, torch)
-    pms = med_ms(splice_p, torch)
+    ms, hms = timed(splice_k)
     bms, by = bound(4.0 * d * f, 0.0)
     res["splice"] = dict(
         name="splice", route="cuda",
         source="src/repro_torch/kernels/csrc/recovery.cu",
         replaces="src/repro/kernels/recovery.py:44",
-        max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-        library_ms=None, shape=[d, f])
+        max_abs_err=0.0, ms=ms, host_ms=hms, plain_ms=timed(splice_p)[0],
+        bound_ms=bms, bound_by=by, library_ms=None, shape=[d, f])
+
+    # -- the copy yardstick: one streaming pass of a splice's bytes --------
+    # dst.copy_(src) on bf16 [d * f] moves the 11.53 MB a splice moves,
+    # with its sources rotating over 92 MB as the splice's planes do.  Not
+    # the same function, so no kernel's library_ms: it shows what one
+    # streaming pass of this size reaches on this card
+    srcs = [torch.cat(pair).view(torch.bfloat16) for pair in sets]
+    dst = torch.empty(d * f, dtype=torch.bfloat16, device=dev)
+
+    def copy_k():
+        dst.copy_(srcs[it[0] % len(srcs)])
+        it[0] += 1
+
+    copy_ms, copy_hms = timed(copy_k)
+    check(torch.equal(dst.view(torch.int16),
+                      srcs[(it[0] - 1) % len(srcs)].view(torch.int16)),
+          "the copy yardstick did not copy")
+    # the floor under every row: an empty kernel, launched back to back
+    launch_ms = timed(lambda: torch.cuda._sleep(0))[0]
+    print(f"copy yardstick: bf16 [{d * f}] dst.copy_(src) {copy_ms:.6g} ms "
+          f"({4.0 * d * f / copy_ms / 1e9:.4g} TB/s), host "
+          f"{copy_hms:.6g} ms to enqueue one; an empty kernel "
+          f"{launch_ms:.6g} ms", flush=True)
 
     # -- splice-admit into a [cap, 2048, 1408] slab ------------------------
     cap, slot = 8, 5
@@ -198,26 +292,40 @@ def kernel_phase(torch, np, dev, cfg):
           f"slots byte-identical, data_ptr unchanged", flush=True)
     del before, want
 
+    # the admit's own yardstick: the same copy into the slots it rotates
+    # over, which are cold in the L2 as a slab slot is
+    def copy_slot():
+        buf[it[0] % cap].view(-1).copy_(srcs[it[0] % len(srcs)])
+        it[0] += 1
+
+    copy_slot_ms = timed(copy_slot)[0]
+    del srcs, dst
+
     def admit_k():
-        a, b = sets[it[0] % 8]
+        a, b = sets[it[0] % n_sets]
         it[0] += 1
         lib.zipmoe_splice_admit(buf.data_ptr(), it[0] % cap, d * f,
                                 a.data_ptr(), b.data_ptr(), stream)
 
     def admit_p():
-        a, b = sets[it[0] % 8]
+        a, b = sets[it[0] % n_sets]
         it[0] += 1
         buf[it[0] % cap] = ref.recover_bf16_ref(a, b).view(d, f)
 
-    ms = med_ms(admit_k, torch)
-    pms = med_ms(admit_p, torch)
-    bms, by = bound(4.0 * d * f, 0.0)
+    ms, hms = timed(admit_k)
     res["splice_admit"] = dict(
         name="splice_admit", route="cuda",
         source="src/repro_torch/kernels/csrc/moe_gemm.cu",
         replaces="src/repro/kernels/moe_gemm.py:172",
-        max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-        library_ms=None, shape=[cap, d, f])
+        max_abs_err=0.0, ms=ms, host_ms=hms, plain_ms=timed(admit_p)[0],
+        bound_ms=bms, bound_by=by, library_ms=None, shape=[cap, d, f])
+    for name, yard in (("splice", copy_ms), ("splice_admit", copy_slot_ms)):
+        print(f"{name}: {res[name]['ms']:.6g} ms on the device, "
+              f"{res[name]['ms'] / copy_ms:.4g}x the copy yardstick, "
+              f"{res[name]['ms'] / yard:.4g}x the copy into its own output "
+              f"({yard:.6g} ms), {res[name]['bound_ms'] / res[name]['ms']:.4g}"
+              f" of the bound; the host takes {res[name]['host_ms']:.6g} ms "
+              f"to enqueue one", flush=True)
     del buf, sets
 
     # -- slot-indexed ragged GEMM at the main path's shapes ----------------
@@ -227,8 +335,8 @@ def kernel_phase(torch, np, dev, cfg):
     n_e = 16
     ts = np.asarray(list(range(14)) + [3, 0], np.int32)
     T = ts.size * 8
-    errs, times = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                       "bound_ms": 0.0}
+    errs, times = [], {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0,
+                       "library_ms": 0.0}
     flops = nbytes = 0.0
     for (dd, ff) in ((d, f), (f, d)):           # gate/up, then down
         x = torch.randn((T, dd), device=dev, generator=g).to(torch.bfloat16)
@@ -252,13 +360,16 @@ def kernel_phase(torch, np, dev, cfg):
         # sargs, taken once so that the timed calls hold no Python work
         sa = moe_gemm.split_args(T // 8, dd, ff, dev)
         sargs = sa.args
-        times["ms"] += med_ms(lambda: lib.zipmoe_slab_gemm(
+        ms, hms = timed(lambda: lib.zipmoe_slab_gemm(
             x.data_ptr(), wb.data_ptr(), ts_d.data_ptr(), o.data_ptr(),
-            T // 8, dd, ff, dd * ff, *sargs, stream), torch)
-        times["plain_ms"] += med_ms(lambda: ref.slab_gemm_ref(x, wb, ts),
-                                    torch)
-        times["library_ms"] += med_ms(lambda: torch.bmm(
-            x.view(T // 8, 8, dd), wb.index_select(0, ts_l)), torch)
+            T // 8, dd, ff, dd * ff, *sargs, stream))
+        times["ms"] += ms
+        times["host_ms"] += hms
+        # the slots as a device tensor: from numpy the plain version would
+        # copy them to the card and synchronise on every call
+        times["plain_ms"] += timed(lambda: ref.slab_gemm_ref(x, wb, ts_l))[0]
+        times["library_ms"] += timed(lambda: torch.bmm(
+            x.view(T // 8, 8, dd), wb.index_select(0, ts_l)))[0]
         distinct = len(set(ts.tolist()))
         nbytes += 2.0 * T * dd + 2.0 * distinct * dd * ff + 4 * ts.size \
             + 2.0 * T * ff
@@ -272,16 +383,16 @@ def kernel_phase(torch, np, dev, cfg):
         name="slab_gemm", route="cuda",
         source="src/repro_torch/kernels/csrc/moe_gemm.cu",
         replaces="src/repro/kernels/moe_gemm.py:123",
-        max_abs_err=max(errs), ms=times["ms"], plain_ms=times["plain_ms"],
-        bound_ms=bms, bound_by=by, library_ms=times["library_ms"],
+        max_abs_err=max(errs), ms=times["ms"], host_ms=times["host_ms"],
+        plain_ms=times["plain_ms"], bound_ms=bms, bound_by=by, library_ms=times["library_ms"],
         shape=[T, d, f, "+", T, f, d])
 
     # -- grouped and fused GEMMs at the main path's shapes ------------------
     # a decode step's padded batch: 16 active experts x C = 8 rows (4
     # tokens x top-4 spread one or two per expert), gate/up then down
     n_e, C = 16, 8
-    acc = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "err": 0.0,
-               "bytes": 0.0, "flops": 0.0}
+    acc = {k: {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0,
+               "library_ms": 0.0, "err": 0.0, "bytes": 0.0, "flops": 0.0}
            for k in ("grouped_gemm", "zip_gemm_grouped", "zip_gemm")}
     for (dd, ff) in ((d, f), (f, d)):
         x = torch.randn((n_e, C, dd), device=dev, generator=g).to(
@@ -302,10 +413,11 @@ def kernel_phase(torch, np, dev, cfg):
         a["err"] = max(a["err"], err)
         sa = moe_gemm.split_args(n_e * C // 8, dd, ff, dev)
         sargs = sa.args
-        own_ms = med_ms(lambda: lib.zipmoe_grouped_gemm(
+        own_ms, hms = timed(lambda: lib.zipmoe_grouped_gemm(
             x.data_ptr(), wb.data_ptr(), o.data_ptr(), n_e, C, dd, ff,
-            *sargs, stream), torch)
+            *sargs, stream))
         a["ms"] += own_ms
+        a["host_ms"] += hms
         # the other distribution of the same slices: the same bits
         other = moe_gemm.split_args(n_e * C // 8, dd, ff, dev,
                                     spread=not sa.spread)
@@ -317,16 +429,16 @@ def kernel_phase(torch, np, dev, cfg):
         check(torch.equal(o.view(torch.int16), k.view(torch.int16)),
               f"grouped GEMM [{dd}->{ff}] differs between its slice "
               f"distributions")
-        alt_ms = med_ms(lambda: lib.zipmoe_grouped_gemm(
+        alt_ms = timed(lambda: lib.zipmoe_grouped_gemm(
             x.data_ptr(), wb.data_ptr(), o.data_ptr(), n_e, C, dd, ff,
-            *oargs, stream), torch)
+            *oargs, stream))[0]
         dist = {True: "spread", False: "walked"}
         print(f"grouped GEMM [{n_e}, {C}, {dd}] x [{n_e}, {dd}, {ff}]: "
               f"{len(sa.bounds) - 1} slices {dist[sa.spread]} (the "
               f"wrapper's choice) {own_ms:.6g} ms, "
               f"{dist[other.spread]} {alt_ms:.6g} ms, bit-equal", flush=True)
-        a["plain_ms"] += med_ms(lambda: ref.moe_gemm_ref(x, wb), torch)
-        a["library_ms"] += med_ms(lambda: torch.bmm(x, wb), torch)
+        a["plain_ms"] += timed(lambda: ref.moe_gemm_ref(x, wb))[0]
+        a["library_ms"] += timed(lambda: torch.bmm(x, wb))[0]
         a["bytes"] += 2.0 * n_e * (C * dd + dd * ff + C * ff)
         a["flops"] += 2.0 * n_e * C * dd * ff
         # the fused splice + grouped GEMM: the same bits as splicing first
@@ -340,11 +452,13 @@ def kernel_phase(torch, np, dev, cfg):
               f"error {err} > {GEMM_REL_TOL} x {scale}")
         a = acc["zip_gemm_grouped"]
         a["err"] = max(a["err"], err)
-        a["ms"] += med_ms(lambda: lib.zipmoe_zip_gemm_grouped(
+        ms, hms = timed(lambda: lib.zipmoe_zip_gemm_grouped(
             x.data_ptr(), e8.data_ptr(), s8.data_ptr(), o.data_ptr(), n_e, C,
-            dd, ff, *sargs, stream), torch)
-        a["plain_ms"] += med_ms(lambda: ref.zip_gemm_grouped_ref(x, e8, s8),
-                                torch)
+            dd, ff, *sargs, stream))
+        a["ms"] += ms
+        a["host_ms"] += hms
+        a["plain_ms"] += timed(lambda: ref.zip_gemm_grouped_ref(x, e8,
+                                                                 s8))[0]
         a["bytes"] += 2.0 * n_e * (C * dd + dd * ff + C * ff)
         a["flops"] += 2.0 * n_e * C * dd * ff
         # one expert at a time: the batched kernel's rows, bit for bit;
@@ -381,9 +495,10 @@ def kernel_phase(torch, np, dev, cfg):
             it[0] += 1
             ref.zip_gemm_grouped_ref(x[e:e + 1], e8[e:e + 1], s8[e:e + 1])
 
-        one_ms = med_ms(zip_one, torch)
+        one_ms, host_ms = timed(zip_one)
         a["ms"] += one_ms
-        a["plain_ms"] += med_ms(zip_one_plain, torch)
+        a["host_ms"] += host_ms
+        a["plain_ms"] += timed(zip_one_plain)[0]
         # the same launches with one CTA walking every slice (what the
         # wrapper does at E = 16): the same bits, and the host's own time
         # per launch, which a one-tile launch comes close to
@@ -395,17 +510,11 @@ def kernel_phase(torch, np, dev, cfg):
         check(torch.equal(o[5].view(torch.int16), kz[5].view(torch.int16)),
               f"zip_gemm [{dd}->{ff}] differs between its slice "
               f"distributions")
-        walk_ms = med_ms(zip_rotating(walk_args), torch)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            zip_one()
-        host_ms = (time.perf_counter() - t0) / 200 * 1e3
-        torch.cuda.synchronize()
+        walk_ms = timed(zip_rotating(walk_args))[0]
         print(f"zip_gemm one tile [{dd}->{ff}]: {len(one_sa.bounds) - 1} "
               f"slices spread (the wrapper's choice) {one_ms:.6g} ms, "
               f"walked {walk_ms:.6g} ms, bit-equal; the host takes "
-              f"{host_ms:.6g} ms to launch one", flush=True)
+              f"{host_ms:.6g} ms to enqueue one", flush=True)
         a["bytes"] += 2.0 * (C * dd + dd * ff + C * ff)
         a["flops"] += 2.0 * C * dd * ff
         print(f"grouped / zip GEMMs [{n_e}, {C}, {dd}] x [{n_e}, {dd}, {ff}]: "
@@ -422,35 +531,54 @@ def kernel_phase(torch, np, dev, cfg):
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/moe_gemm.cu",
             replaces=lines[name], max_abs_err=a["err"], ms=a["ms"],
-            plain_ms=a["plain_ms"], bound_ms=bms, bound_by=by,
+            host_ms=a["host_ms"], plain_ms=a["plain_ms"], bound_ms=bms,
+            bound_by=by,
             # no single PyTorch call splices and multiplies
             library_ms=a["library_ms"] if name == "grouped_gemm" else None)
-    share = {n: res[n]["bound_ms"] / res[n]["ms"] for n in
-             ("slab_gemm", "grouped_gemm", "zip_gemm_grouped", "zip_gemm")}
-    print(json.dumps({"gemm_bound_share": share,
-                      "gemm_ptxas": ptxas_usage(_build)}), flush=True)
+    # each kernel's share of its bound and the host's time to enqueue one
+    # launch (a GEMM row: its d->f + f->d pair), the copy yardstick, and
+    # the registers, shared memory and spills of every kernel
+    print(json.dumps({
+        "bound_share": {n: r["bound_ms"] / r["ms"] for n, r in res.items()},
+        "host_enqueue_ms": {n: r["host_ms"] for n, r in res.items()},
+        "copy_yardstick_ms": copy_ms, "copy_into_slot_ms": copy_slot_ms,
+        "empty_kernel_ms": launch_ms, "ptxas": ptxas_usage(_build)}),
+        flush=True)
     return res
 
 
+# the kernels' entry functions in the ptxas log, by the name phase 2 gives
+PTXAS_NAMES = {"splice": r"zipmoe_splice_kernel",
+               "splice_admit": r"zipmoe_splice_admit_kernel",
+               "SlabSource": r"gemm_kernel\w*SlabSource",
+               "StackSource": r"gemm_kernel\w*StackSource",
+               "PlaneSource": r"gemm_kernel\w*PlaneSource"}
+
+
 def ptxas_usage(_build):
-    """Registers and spill bytes of each GEMM instantiation, from the
-    build's ``nvcc -Xptxas -v`` log."""
+    """Registers, static shared memory and spill bytes of each kernel (the
+    two splices and the three GEMM instantiations), from the build's
+    ``nvcc -Xptxas -v`` log."""
     log = (Path(_build.BUILD_INFO["path"]).parent / "ptxas.log").read_text()
     out = {}
     for entry in log.split("Compiling entry function")[1:]:
-        src = re.search(r"gemm_kernel\w*?([A-Z][a-z]+Source)", entry)
-        if src is None:
+        head = entry.splitlines()[0]
+        name = next((n for n, pat in PTXAS_NAMES.items()
+                     if re.search(pat, head)), None)
+        if name is None:
             continue
         regs = re.search(r"Used (\d+) registers", entry)
+        smem = re.search(r"(\d+) bytes smem", entry)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", entry)
         check(regs is not None and spill is not None,
-              f"ptxas log has no register line for {src.group(1)}")
-        out[src.group(1)] = {"registers": int(regs.group(1)),
-                             "spill_stores": int(spill.group(1)),
-                             "spill_loads": int(spill.group(2))}
-    check(len(out) == 3, f"ptxas log names {sorted(out)}, expected the "
-          f"three GEMM instantiations")
+              f"ptxas log has no register line for {name}")
+        out[name] = {"registers": int(regs.group(1)),
+                     "static_smem": int(smem.group(1)) if smem else 0,
+                     "spill_stores": int(spill.group(1)),
+                     "spill_loads": int(spill.group(2))}
+    check(sorted(out) == sorted(PTXAS_NAMES),
+          f"ptxas log names {sorted(out)}, expected {sorted(PTXAS_NAMES)}")
     return out
 
 

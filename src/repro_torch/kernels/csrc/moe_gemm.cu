@@ -9,7 +9,8 @@
 // kernel writes splice(exp, sm) through ``buf + slot * d * f``, with the slot
 // a runtime int, so the write is in place by construction and every other
 // slot keeps its bytes.  Bound: bytes (2 B in, 2 B out per element), the
-// same grid-stride body as the standalone splice (splice.cuh).
+// same streaming body as the standalone splice (splice.cuh); a slot of odd
+// d * f starts off a 16-byte boundary and is spliced element by element.
 //
 // ---------------------------------------------------------------------------
 // zipmoe_gemm_kernel<Source>: for each 8-row token tile i,
@@ -563,7 +564,8 @@ int launch_gemm(const void* x, const Source& src, void* out, int n_tiles,
   return static_cast<int>(cudaGetLastError());
 }
 
-__global__ void __launch_bounds__(256) zipmoe_splice_admit_kernel(
+__global__ void __launch_bounds__(zipmoe::kSpliceThreads)
+    zipmoe_splice_admit_kernel(
     uint16_t* __restrict__ buf, int slot, long long slot_elems,
     const uint8_t* __restrict__ exp, const uint8_t* __restrict__ sm) {
   zipmoe::splice_range(exp, sm, buf + static_cast<long long>(slot) * slot_elems,
@@ -576,9 +578,8 @@ extern "C" int zipmoe_splice_admit(void* buf, int slot, long long slot_elems,
                                    const void* exp, const void* sm,
                                    void* stream) {
   if (slot_elems <= 0) return 0;
-  const int threads = 256;
-  zipmoe_splice_admit_kernel<<<zipmoe::splice_grid(slot_elems, threads),
-                               threads, 0,
+  zipmoe_splice_admit_kernel<<<zipmoe::splice_grid(slot_elems),
+                               zipmoe::kSpliceThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint16_t*>(buf), slot, slot_elems,
       static_cast<const uint8_t*>(exp), static_cast<const uint8_t*>(sm));

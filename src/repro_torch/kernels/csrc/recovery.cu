@@ -6,16 +6,18 @@
 //
 // Bound on the H100: bytes.  It reads 2 B and writes 2 B per element and
 // does three integer ops on them, far below the ~295 operations per byte
-// where the card stops being memory-bound.  Design: a grid-stride loop in
-// which each thread moves 16 B of each plane in and 32 B of bf16 out per
-// step (coalesced 16-byte accesses), over any flat length with an
-// element-wise tail, so no tile padding is needed.  The grid is capped so a
-// block does several steps and launch overhead stays small.
+// where the card stops being memory-bound.  The body is the streaming
+// splice of splice.cuh (zipmoe::splice_range), shared with the slab
+// splice-admit: 8 B of each plane per load and full 512-byte warp stores,
+// two steps per thread with every load before any store, the planes read
+// once with an L2 evict_first policy, one pass of blocks over the work, and
+// an element path for the tail and for misaligned pointers, so any flat
+// length is taken without padding.
 #include <cuda_runtime.h>
 
 #include "splice.cuh"
 
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(zipmoe::kSpliceThreads)
     zipmoe_splice_kernel(const uint8_t* __restrict__ exp,
                          const uint8_t* __restrict__ sm,
                          uint16_t* __restrict__ out, long long n) {
@@ -25,8 +27,7 @@ __global__ void __launch_bounds__(256)
 extern "C" int zipmoe_splice(const void* exp, const void* sm, void* out,
                              long long n, void* stream) {
   if (n <= 0) return 0;
-  const int threads = 256;
-  zipmoe_splice_kernel<<<zipmoe::splice_grid(n, threads), threads, 0,
+  zipmoe_splice_kernel<<<zipmoe::splice_grid(n), zipmoe::kSpliceThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(exp), static_cast<const uint8_t*>(sm),
       static_cast<uint16_t*>(out), n);

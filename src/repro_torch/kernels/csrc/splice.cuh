@@ -4,8 +4,8 @@
 // in bit 7 and the 7 mantissa bits in bits 0..6.  This header plays the role
 // ``splice_bf16`` (src/repro/kernels/recovery.py:26) plays in the JAX
 // package: every kernel that recovers weights (the standalone splice, the
-// slab splice-admit, and later the fused splice+GEMM kernels) includes it,
-// so the bit semantics live in one place.
+// slab splice-admit, and the fused splice+GEMM kernels) includes it, so the
+// bit semantics live in one place.
 #pragma once
 
 #include <cstdint>
@@ -26,53 +26,96 @@ __device__ __forceinline__ void splice4(uint32_t e4, uint32_t s4, uint32_t& lo,
        (splice_bits(e4 >> 24, s4 >> 24) << 16);
 }
 
-// out[i] = splice(exp[i], sm[i]) for i in [0, n), grid-stride.  When all
-// three pointers are 16-byte aligned each thread step loads 16 B of each
-// plane and stores 32 B of bf16; whatever the vector loop leaves (the tail,
-// or everything for unaligned pointers) goes element by element, so any
-// flat length is taken without padding.
+// ---------------------------------------------------------------------------
+// The one streaming body of the standalone splice (recovery.cu) and the slab
+// splice-admit (moe_gemm.cu): out[i] = splice(exp[i], sm[i]) for i in
+// [0, n).  Bound: bytes, 2 B read and 2 B written per element.  At the
+// served [2048, 1408] (11.53 MB) the bytes alone take 3.44 us at 3.35 TB/s,
+// and an empty kernel launched back to back already takes 2.2 us (NVIDIA
+// H100 80GB HBM3 at 700 W, chip_smoke.py phase 2), so what the body
+// controls is how soon every byte is requested and how few requests carry
+// it:
+//
+// * Each thread takes kSpliceSteps steps of 8 elements, a block's steps
+//   interleaved by thread, and issues every load before any store: per
+//   step 8 B of each plane, so one warp load reads a contiguous 256-byte
+//   run of a plane, and one 16-byte store of bf16, so one warp store writes
+//   a contiguous 512-byte run in full 32-byte sectors.
+// * The planes are read once: ``ld.global.nc.L1::no_allocate`` with an L2
+//   evict_first policy, so they neither fill L1 nor push the output out of
+//   the L2.  The output keeps the default policy: its consumer (the stacked
+//   weight copy, or the ragged GEMM on the slot) reads it next.
+// * The grid covers the work once (splice_grid: 704 blocks at the served
+//   shape) and needs no SM count; the block loop strides by the grid only
+//   past 2^31 - 1 blocks.
+// * The vector steps need exp and sm 8-byte aligned and out 16-byte
+//   aligned.  Otherwise (a view at any offset, or a slab slot of odd d * f)
+//   every element, and always the n % 8 tail, goes element by element, so
+//   any flat length and any alignment of each pointer is taken.
+constexpr int kSpliceThreads = 256;
+constexpr int kSpliceSteps = 2;
+constexpr long long kSpliceTile = kSpliceThreads * kSpliceSteps;   // steps
+
+__device__ __forceinline__ uint2 load_once(const uint8_t* p, uint64_t policy) {
+  uint2 v;
+  asm volatile(
+      "ld.global.nc.L1::no_allocate.L2::cache_hint.v2.u32 {%0, %1}, [%2], "
+      "%3;"
+      : "=r"(v.x), "=r"(v.y)
+      : "l"(p), "l"(policy));
+  return v;
+}
+
 __device__ __forceinline__ void splice_range(const uint8_t* __restrict__ exp,
                                              const uint8_t* __restrict__ sm,
                                              uint16_t* __restrict__ out,
                                              long long n) {
+  const bool vec = ((reinterpret_cast<uintptr_t>(exp) |
+                     reinterpret_cast<uintptr_t>(sm)) & 7u) == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & 15u) == 0;
+  const long long nv = vec ? n / 8 : 0;
+  if (nv > 0) {
+    uint64_t policy;
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+                 : "=l"(policy));
+    const long long tiles = (nv + kSpliceTile - 1) / kSpliceTile;
+    for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const long long first = t * kSpliceTile + threadIdx.x;
+      uint2 e[kSpliceSteps], s[kSpliceSteps];
+#pragma unroll
+      for (int u = 0; u < kSpliceSteps; ++u) {
+        const long long i = first + u * kSpliceThreads;
+        if (i < nv) {
+          e[u] = load_once(exp + 8 * i, policy);
+          s[u] = load_once(sm + 8 * i, policy);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kSpliceSteps; ++u) {
+        const long long i = first + u * kSpliceThreads;
+        if (i < nv) {
+          uint4 o;
+          splice4(e[u].x, s[u].x, o.x, o.y);
+          splice4(e[u].y, s[u].y, o.z, o.w);
+          *reinterpret_cast<uint4*>(out + 8 * i) = o;
+        }
+      }
+    }
+  }
   const long long tid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const bool vec = ((reinterpret_cast<uintptr_t>(exp) |
-                     reinterpret_cast<uintptr_t>(sm) |
-                     reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
-  long long done = 0;
-  if (vec) {
-    const long long nv = n / 16;
-    const uint4* e16 = reinterpret_cast<const uint4*>(exp);
-    const uint4* s16 = reinterpret_cast<const uint4*>(sm);
-    uint4* o16 = reinterpret_cast<uint4*>(out);
-    for (long long i = tid; i < nv; i += stride) {
-      const uint4 e = __ldg(e16 + i);
-      const uint4 s = __ldg(s16 + i);
-      uint4 a, b;
-      splice4(e.x, s.x, a.x, a.y);
-      splice4(e.y, s.y, a.z, a.w);
-      splice4(e.z, s.z, b.x, b.y);
-      splice4(e.w, s.w, b.z, b.w);
-      o16[2 * i] = a;
-      o16[2 * i + 1] = b;
-    }
-    done = nv * 16;
-  }
-  for (long long i = done + tid; i < n; i += stride) {
+  for (long long i = nv * 8 + tid; i < n; i += stride) {
     out[i] = static_cast<uint16_t>(splice_bits(exp[i], sm[i]));
   }
 }
 
-// Grid for a grid-stride pass over n elements, 16 per thread step: enough
-// blocks to cover the work once, capped at 16 blocks per SM of an H100.
-inline int splice_grid(long long n, int threads) {
-  const long long steps = (n + 15) / 16;
-  long long blocks = (steps + threads - 1) / threads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  return static_cast<int>(blocks);
+// Blocks of kSpliceThreads for splice_range over n elements: one per tile
+// of kSpliceTile 8-element steps, so one pass covers the work.
+inline int splice_grid(long long n) {
+  const long long blocks = (n + 8 * kSpliceTile - 1) / (8 * kSpliceTile);
+  return static_cast<int>(blocks < 1 ? 1 : blocks > 0x7FFFFFFF ? 0x7FFFFFFF
+                                                               : blocks);
 }
 
 }  // namespace zipmoe

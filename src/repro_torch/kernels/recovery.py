@@ -2,10 +2,15 @@
 
 The paper's CUDA kernel streams SM-chunks and decompressed E-chunks through
 registers with vectorized loads/stores so the bit splice runs at DRAM
-bandwidth.  ``csrc/recovery.cu`` is that kernel: a grid-stride loop moving
-16 B of each u8 plane in and 32 B of bf16 out per thread step, over any flat
-length (masked tail, no tile padding).  It replaces the JAX package's Pallas
-``recover_bf16_2d``; the bit rule lives in ``csrc/splice.cuh``.
+bandwidth.  ``csrc/recovery.cu`` is that kernel, on the streaming body of
+``csrc/splice.cuh`` that the slab splice-admit shares: 8 B of each u8 plane
+in and 16 B of bf16 out per step, two steps per thread with every load
+issued before any store, so each warp store writes one contiguous 512-byte
+run; the planes are read once with an L2 evict_first policy; one pass of
+blocks covers the work, and an element path takes the tail and misaligned
+pointers, so any flat length is taken without tile padding.  It replaces
+the JAX package's Pallas ``recover_bf16_2d``; the bit rule lives in
+``csrc/splice.cuh``.
 
 ``recover_bf16`` launches it for CUDA tensors only; ``kernels/ops.py``
 dispatches, with ``kernels/ref.recover_bf16_ref`` as the plain version for

@@ -44,19 +44,67 @@ def test_splice_all_patterns(cuda):
     assert _same(got, u.view(torch.bfloat16))
 
 
-@pytest.mark.parametrize("n,offset", [(2048 * 1408, 0), (1000003, 0),
-                                      (4097, 1), (15, 0)])
-def test_splice_any_length_and_alignment(cuda, n, offset):
+# (n, offset of exp, offset of sm, offset of out): any flat length, each
+# pointer at any alignment on its own (exp and sm in bytes, out in bf16
+# elements through a view into a larger buffer).  The body's vector steps
+# take 8 elements, a block 4096 (splice.cuh: kSpliceTile steps of 8);
+# lengths sit on and around both
+SPLICE_CASES = (
+    [(2048 * 1408, 0, 0, 0), (1000003, 0, 0, 0), (4097, 1, 1, 0),
+     (15, 0, 0, 0), (2048 * 1408, 8, 8, 8), (2048 * 1408 + 5, 0, 0, 1),
+     (100003, 15, 9, 13)]
+    + [(n, 0, 0, 0) for n in (1, 7, 8, 9, 16, 17, 4095, 4096, 4097, 8193)]
+    + [(100003, k, 0, 0) for k in range(1, 16)]
+    + [(100003, 0, k, 0) for k in range(1, 16)]
+    + [(100003, 0, 0, k) for k in range(1, 16)])
+
+
+@pytest.mark.parametrize("n,oe,osm,oo", SPLICE_CASES)
+def test_splice_any_length_and_alignment(cuda, n, oe, osm, oo):
     g = torch.Generator().manual_seed(n)
-    e = torch.randint(0, 256, (n + offset,), dtype=torch.uint8, generator=g)
-    s = torch.randint(0, 256, (n + offset,), dtype=torch.uint8, generator=g)
-    got = recovery.recover_bf16(e.to(cuda)[offset:], s.to(cuda)[offset:])
-    assert _same(got.cpu(), ref.recover_bf16_ref(e[offset:], s[offset:]))
+    e = torch.randint(0, 256, (n + oe,), dtype=torch.uint8, generator=g)
+    s = torch.randint(0, 256, (n + osm,), dtype=torch.uint8, generator=g)
+    want = ref.recover_bf16_ref(e[oe:], s[osm:])
+    ed, sd = e.to(cuda)[oe:], s.to(cuda)[osm:]
+    assert _same(recovery.recover_bf16(ed, sd).cpu(), want)
+    # into a view at element offset oo; the rest of the buffer keeps its
+    # bytes
+    buf = torch.full((n + oo + 8,), 0x5A5A, dtype=torch.int16, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert _build.library().zipmoe_splice(ed.data_ptr(), sd.data_ptr(),
+                                          buf[oo:].data_ptr(), n, stream) == 0
+    got = buf.cpu()
+    assert _same(got[oo:oo + n], want)
+    assert bool((got[:oo] == 0x5A5A).all())
+    assert bool((got[oo + n:] == 0x5A5A).all())
 
 
-def test_splice_admit_in_place(cuda):
-    g = torch.Generator().manual_seed(0)
-    cap, d, f, slot = 4, 64, 72, 2
+def test_splice_repeat_launch_bit_equal(cuda):
+    """Repeated launches on the same planes give the same bits, standalone
+    and into a slab slot, vector steps and tail alike."""
+    g = torch.Generator().manual_seed(1)
+    n = 2048 * 1408 + 5
+    e = torch.randint(0, 256, (n,), dtype=torch.uint8, generator=g)
+    s = torch.randint(0, 256, (n,), dtype=torch.uint8, generator=g)
+    want = ref.recover_bf16_ref(e, s)
+    ed, sd = e.to(cuda), s.to(cuda)
+    outs = [recovery.recover_bf16(ed, sd) for _ in range(10)]
+    assert all(_same(o.cpu(), want) for o in outs)
+    buf = torch.zeros((3, n), dtype=torch.bfloat16, device=cuda)
+    for _ in range(10):
+        moe_gemm.slab_splice_admit(buf, ed, sd, 1)
+        assert _same(buf[1].cpu(), want)
+    assert bool((buf[0] == 0).all()) and bool((buf[2] == 0).all())
+
+
+# (d, f, slot): an even slot size, and odd d * f, where every slot but
+# slot 0 starts off a 16-byte boundary (slot cap - 1 = 3 at 10 bytes past
+# one)
+@pytest.mark.parametrize("d,f,slot", [(64, 72, 2), (33, 31, 0), (33, 31, 3),
+                                      (129, 127, 0), (129, 127, 3)])
+def test_splice_admit_in_place(cuda, d, f, slot):
+    g = torch.Generator().manual_seed(d * f + slot)
+    cap = 4
     base = torch.randn((cap, d, f), generator=g).to(torch.bfloat16)
     w = torch.randn((d, f), generator=g).to(torch.bfloat16)
     e, s = bitfield.decompose(w)
