@@ -9,10 +9,11 @@
 // where the card stops being memory-bound.  The body is the streaming
 // splice of splice.cuh (zipmoe::splice_range), shared with the slab
 // splice-admit: 8 B of each plane per load and full 512-byte warp stores,
-// two steps per thread with every load before any store, the planes read
-// once with an L2 evict_first policy, one pass of blocks over the work, and
-// an element path for the tail and for misaligned pointers, so any flat
-// length is taken without padding.
+// two steps per thread with every load before any store, the planes and
+// the output each touched once (no L1 line for the planes, streaming stores
+// for the output), one pass of blocks over the work, and an element path
+// for the tail and for misaligned pointers, so any flat length is taken
+// without padding.
 #include <cuda_runtime.h>
 
 #include "splice.cuh"

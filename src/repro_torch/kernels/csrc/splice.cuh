@@ -31,7 +31,7 @@ __device__ __forceinline__ void splice4(uint32_t e4, uint32_t s4, uint32_t& lo,
 // splice-admit (moe_gemm.cu): out[i] = splice(exp[i], sm[i]) for i in
 // [0, n).  Bound: bytes, 2 B read and 2 B written per element.  At the
 // served [2048, 1408] (11.53 MB) the bytes alone take 3.44 us at 3.35 TB/s,
-// and an empty kernel launched back to back already takes 2.2 us (NVIDIA
+// and an empty kernel launched back to back already takes 2.0-2.2 us (NVIDIA
 // H100 80GB HBM3 at 700 W, chip_smoke.py phase 2), so what the body
 // controls is how soon every byte is requested and how few requests carry
 // it:
@@ -41,10 +41,15 @@ __device__ __forceinline__ void splice4(uint32_t e4, uint32_t s4, uint32_t& lo,
 //   step 8 B of each plane, so one warp load reads a contiguous 256-byte
 //   run of a plane, and one 16-byte store of bf16, so one warp store writes
 //   a contiguous 512-byte run in full 32-byte sectors.
-// * The planes are read once: ``ld.global.nc.L1::no_allocate`` with an L2
-//   evict_first policy, so they neither fill L1 nor push the output out of
-//   the L2.  The output keeps the default policy: its consumer (the stacked
-//   weight copy, or the ragged GEMM on the slot) reads it next.
+// * Every byte is touched once: the planes are loaded with
+//   ``ld.global.nc.L1::no_allocate`` (read-only, no L1 line), the bf16
+//   output is stored with ``st.global.cs`` (streaming: its L2 lines are the
+//   first evicted).  A slab slot is cold in the L2, and under the default
+//   store policy its writes made the splice-admit as slow as a plain copy
+//   into the same slots; on the served path the output's consumer (the
+//   stacked weight copy, the ragged GEMM on the slot) reads it only after
+//   the rest of the layer's experts have been spliced, hundreds of MB
+//   later, so keeping it in the L2 buys nothing there.
 // * The grid covers the work once (splice_grid: 704 blocks at the served
 //   shape) and needs no SM count; the block loop strides by the grid only
 //   past 2^31 - 1 blocks.
@@ -56,14 +61,18 @@ constexpr int kSpliceThreads = 256;
 constexpr int kSpliceSteps = 2;
 constexpr long long kSpliceTile = kSpliceThreads * kSpliceSteps;   // steps
 
-__device__ __forceinline__ uint2 load_once(const uint8_t* p, uint64_t policy) {
+__device__ __forceinline__ uint2 load_once(const uint8_t* p) {
   uint2 v;
-  asm volatile(
-      "ld.global.nc.L1::no_allocate.L2::cache_hint.v2.u32 {%0, %1}, [%2], "
-      "%3;"
-      : "=r"(v.x), "=r"(v.y)
-      : "l"(p), "l"(policy));
+  asm volatile("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];"
+               : "=r"(v.x), "=r"(v.y)
+               : "l"(p));
   return v;
+}
+
+__device__ __forceinline__ void store_once(uint16_t* p, const uint4& v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};" ::"l"(p),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
 }
 
 __device__ __forceinline__ void splice_range(const uint8_t* __restrict__ exp,
@@ -75,9 +84,6 @@ __device__ __forceinline__ void splice_range(const uint8_t* __restrict__ exp,
                    (reinterpret_cast<uintptr_t>(out) & 15u) == 0;
   const long long nv = vec ? n / 8 : 0;
   if (nv > 0) {
-    uint64_t policy;
-    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
-                 : "=l"(policy));
     const long long tiles = (nv + kSpliceTile - 1) / kSpliceTile;
     for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
       const long long first = t * kSpliceTile + threadIdx.x;
@@ -86,8 +92,8 @@ __device__ __forceinline__ void splice_range(const uint8_t* __restrict__ exp,
       for (int u = 0; u < kSpliceSteps; ++u) {
         const long long i = first + u * kSpliceThreads;
         if (i < nv) {
-          e[u] = load_once(exp + 8 * i, policy);
-          s[u] = load_once(sm + 8 * i, policy);
+          e[u] = load_once(exp + 8 * i);
+          s[u] = load_once(sm + 8 * i);
         }
       }
 #pragma unroll
@@ -97,7 +103,7 @@ __device__ __forceinline__ void splice_range(const uint8_t* __restrict__ exp,
           uint4 o;
           splice4(e[u].x, s[u].x, o.x, o.y);
           splice4(e[u].y, s[u].y, o.z, o.w);
-          *reinterpret_cast<uint4*>(out + 8 * i) = o;
+          store_once(out + 8 * i, o);
         }
       }
     }

@@ -6,9 +6,10 @@ bandwidth.  ``csrc/recovery.cu`` is that kernel, on the streaming body of
 ``csrc/splice.cuh`` that the slab splice-admit shares: 8 B of each u8 plane
 in and 16 B of bf16 out per step, two steps per thread with every load
 issued before any store, so each warp store writes one contiguous 512-byte
-run; the planes are read once with an L2 evict_first policy; one pass of
-blocks covers the work, and an element path takes the tail and misaligned
-pointers, so any flat length is taken without tile padding.  It replaces
+run; the planes are read without L1 lines and the output is stored
+streaming, each byte touched once; one pass of blocks covers the work, and
+an element path takes the tail and misaligned pointers, so any flat length
+is taken without tile padding.  It replaces
 the JAX package's Pallas ``recover_bf16_2d``; the bit rule lives in
 ``csrc/splice.cuh``.
 
