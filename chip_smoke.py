@@ -45,16 +45,37 @@ failure exits non-zero:
      (4 tokens): bit-identical to each other, zero h2d bytes on the hit
      steps, zero weight-copy bytes on the ragged path and the gather copy
      on the grouped one;
-   * ``profile_p_times=True`` (3 tokens): measured p-time buckets.
+   * ``profile_p_times=True`` (3 tokens): measured p-time buckets;
+   * ``device_recovery=True, ffn_impl="grouped"`` (8 tokens): the engine's
+     I/O and decompression workers splice each recovered tensor on the
+     card; logits bit-identical to the ragged path's, and one splice
+     launch per splice the engine counts;
+   * ``device_cache=True, ffn_impl="ragged", mem_budget=...`` (8 tokens,
+     a forced re-plan before step 4): live §3.4 planning with the host's
+     profiled u/c; logits bit-identical to the ragged path's, at least two
+     plans and one re-plan, resident bytes within the budget.  The
+     profiled PlanConsts, each plan's sizes and each re-plan's wall time
+     are printed.
 
    Each path's launch counts are reset just before its first step and
-   read just after its last; every kernel must launch on the paths that
-   run it.
-4. One JSON line with each kernel's launches on its path, error, times and
+   read just after its last (after its prefetch jobs are drained where
+   the counts are compared with the engine's); every kernel must launch
+   on the paths that run it.
+4. Slab migration, on the engine directly, from the same store: planning
+   constants pinned to a decompression-bound persona (so F pools get
+   bytes and slabs are built), a drifting trace (the popular set flips at
+   mid-trace, layer 1 goes idle).  Every re-plan is watched from outside:
+   a drift re-plan must happen, at least one re-plan must carry residents
+   from an old slab into a new one, layer 0's F residents must read back
+   bit for bit equal to the store after every re-plan, and layer 1's slab
+   must exist during the trace, be freed at its end, and every SlotRef
+   into it taken before a re-plan must be stale.
+5. One JSON line with each kernel's launches on its path, error, times and
    bound; then the result line.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -74,13 +95,29 @@ NEW_TOKENS = 8
 SEED = 0
 POOLS_SMALL = {"F": 8, "C": 8, "S": 16, "E": 16}   # F < a step's ~16 experts
 PROFILE_STEPS = 3            # the measured-p path needs only a few steps
-# the kernels each served path must launch (phase 3)
+# the planned path: one global budget of 24 experts' bf16 bytes (a fifth
+# of the two layers' 120 experts), the probe every 4 steps, and a forced
+# re-plan before step 4
+PLAN_BUDGET_EXPERTS = 24
+PLAN_REPLAN_EVERY = 4
+PLAN_FORCED_AT = 4
+# the slab-migration run: the JAX package's drift test (two 40-step zipf
+# phases, seeds 5 and 99, top-2; 10 experts' bytes; a probe every 8 steps)
+MIGRATION_PHASE = 40
+MIGRATION_BUDGET_EXPERTS = 10
+MIGRATION_REPLAN_EVERY = 8
+# the kernels each served path must launch (phases 3 and 4); the planned
+# path must also launch the splice-admit when its plans give F bytes, the
+# standalone splice when they do not
 PATH_KERNELS = {
     "ragged": ("splice", "splice_admit", "slab_gemm"),
     "fused-grouped": ("zip_gemm_grouped",),
     "fused-loop": ("zip_gemm",),
     "grouped-cache-hit": ("grouped_gemm",),
     "profile": ("grouped_gemm", "slab_gemm"),
+    "device-recovery": ("splice", "grouped_gemm"),
+    "planned": ("slab_gemm",),
+    "migration": ("splice_admit",),
 }
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12     # dense bf16 tensor-core peak
@@ -585,11 +622,13 @@ def ptxas_usage(_build):
 # ----------------------------------------------------------------------------
 # phase 3: the main path at full width
 # ----------------------------------------------------------------------------
-def serve(torch, zs, prompt, steps, t_len):
+def serve(torch, zs, prompt, steps, t_len, before_step=None, drain=False):
     """Greedy decode of `prompt` for `steps` tokens; the launch counters are
-    reset just before the first step and read just after the last.  A step
-    ends when its token is known on the host.  Returns the step inputs,
-    logits, host step times, served tokens, launches and stats."""
+    reset just before the first step and read just after the last (after
+    the prefetch jobs still in flight finished, with `drain`).  A step
+    ends when its token is known on the host; ``before_step(zs, i)`` runs
+    before step i, outside its time.  Returns the step inputs, logits, host
+    step times, served tokens, launches and stats."""
     from repro_torch.kernels import _build
     caches = zs.init_cache(prompt.shape[0], t_len)
     tok = prompt
@@ -597,6 +636,8 @@ def serve(torch, zs, prompt, steps, t_len):
     torch.cuda.synchronize()
     _build.reset_launches()
     for i in range(steps):
+        if before_step is not None:
+            before_step(zs, i)
         t1 = time.perf_counter()
         inputs.append(tok)
         lg, caches = zs.decode_step(tok, caches, i)
@@ -604,6 +645,8 @@ def serve(torch, zs, prompt, steps, t_len):
         tok.cpu()
         times.append(time.perf_counter() - t1)
         logits.append(lg)
+    if drain:
+        zs.drain_pending()
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     served = torch.cat(inputs[1:] + [tok], dim=1).cpu().numpy()
@@ -765,12 +808,16 @@ def main_path(torch, np, dev, cfg, store_dir):
         return ZipServer(params, cfg, store_dir, L=6, prefetch=True,
                          device=dev, **kw)
 
-    def run_path(name, steps, **kw):
+    def run_path(name, steps, before_step=None, drain=False, inspect=None,
+                 **kw):
         zs = server(**kw)
         try:
-            run = serve(torch, zs, prompt, steps, steps + 1)
+            run = serve(torch, zs, prompt, steps, steps + 1, before_step,
+                        drain)
             if kw.get("profile_p_times"):
                 run["p_times"] = zs.p_time_summary()
+            if inspect is not None:
+                run["inspect"] = inspect(zs)
         finally:
             zs.close()
         launches[name] = run["launches"]
@@ -848,7 +895,213 @@ def main_path(torch, np, dev, cfg, store_dir):
     numbers["profile"]["p_time_buckets"] = pt["buckets"]
     print(f"profile: {pt['n_measurements']} buckets measured in "
           f"{pt['measure_wall_s'] * 1e3:.1f} ms: {pt['buckets']}", flush=True)
+    del prof
+
+    # -- (e) device recovery: splices on the engine's worker threads -------
+    # each worker launches on its thread's current stream and synchronises
+    # it before handing the tensor over; bit-identical logits show the
+    # decode thread never read a tensor whose splice was still queued
+    devrec = run_path("device-recovery", NEW_TOKENS, drain=True,
+                      pool_sizes=POOLS_SMALL, device_recovery=True,
+                      ffn_impl="grouped")
+    lr = devrec["launches"]
+    check(same_logits(torch, ragged, devrec),
+          "device-recovery logits differ from the ragged path's")
+    check(lr["splice"] == devrec["overlap"]["splice_ops"] > 0,
+          f"device-recovery: {lr['splice']} splice launches, the engine "
+          f"counted {devrec['overlap']['splice_ops']} splices")
+    check(lr["grouped_gemm"] > 0, f"device-recovery launches {lr}")
+    print("device-recovery: logits bit-identical to ragged; splice launches "
+          f"= engine splices = {lr['splice']}", flush=True)
+    del devrec
+
+    # -- (f) live §3.4 planning under one byte budget ----------------------
+    f_bytes = store.groups[min(store.groups)].full_bytes
+    budget = PLAN_BUDGET_EXPERTS * f_bytes
+
+    def forced_replan(zs, i):
+        if i == PLAN_FORCED_AT:
+            zs.engine.replan(reason="forced")
+
+    def plan_info(zs):
+        return {"plan": zs.plan_summary(),
+                "consts": {l: dataclasses.asdict(zs.engine.plan_consts(l))
+                           for l in zs._moe_layers}}
+
+    # earlier servers' slabs live until the collector breaks their
+    # engine <-> cache cycles: collect first, so the peak is this path's
+    gc.collect()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    planned = run_path("planned", NEW_TOKENS, before_step=forced_replan,
+                       inspect=plan_info, device_cache=True,
+                       ffn_impl="ragged", mem_budget=budget,
+                       replan_every=PLAN_REPLAN_EVERY)
+    peak = torch.cuda.max_memory_allocated()
+    ps, consts = planned["inspect"]["plan"], planned["inspect"]["consts"]
+    events = [{"step": ev["step"], "reason": ev["reason"],
+               "wall_ms": ev["wall_s"] * 1e3,
+               "sizes": {str(l): sz for l, sz in ev["sizes"].items()}}
+              for ev in ps["replans"]]
+    gave_f = any(sz.get("F", 0) > 0 for ev in ps["replans"]
+                 for sz in ev["sizes"].values())
+    print(f"planned: budget {budget} B ({PLAN_BUDGET_EXPERTS} experts x "
+          f"{f_bytes} B); profiled PlanConsts per layer {consts}", flush=True)
+    for ev in events:
+        print(f"planned: plan at step {ev['step']} ({ev['reason']}) in "
+              f"{ev['wall_ms']:.3f} ms: sizes {ev['sizes']}", flush=True)
+    check(same_logits(torch, ragged, planned),
+          "planned logits differ from the ragged path's")
+    check(ps["n_plans"] >= 2 and ps["n_replans"] >= 1,
+          f"planned: {ps['n_plans']} plans, {ps['n_replans']} re-plans")
+    check(ps["bytes_resident"] <= budget,
+          f"planned: {ps['bytes_resident']} B resident > budget {budget} B")
+    need = "splice_admit" if gave_f else "splice"
+    check(planned["launches"][need] > 0,
+          f"planned: plans {'gave' if gave_f else 'did not give'} F bytes "
+          f"but {need} never launched: {planned['launches']}")
+    numbers["planned"].update(
+        budget_bytes=budget, plans=events, consts=consts, f_gets_bytes=gave_f,
+        bytes_resident=ps["bytes_resident"], peak_mem_bytes=peak,
+        mem_before_bytes=base_mem,
+        replan_ms=[ev["wall_ms"] for ev in events])
+    print(f"planned: logits bit-identical to ragged; F bytes planned: "
+          f"{gave_f}; resident {ps['bytes_resident']} B; device memory "
+          f"{base_mem} B allocated before the path, {peak} B at its peak",
+          flush=True)
+    del planned
+
+    # -- (g) slab migration on the engine, with pinned planning constants --
+    launches["migration"], numbers["migration"] = migration_run(
+        torch, np, dev, cfg, store_dir, store.groups[min(store.groups)])
     return launches, numbers
+
+
+def migration_run(torch, np, dev, cfg, store_dir, group):
+    """The JAX package's drift test at full width, on the port's engine in
+    device-slab mode, with every re-plan checked from outside.  Returns the
+    launches and numbers of the run."""
+    from repro_torch.core import bitfield
+    from repro_torch.core.engine import ZipMoEEngine
+    from repro_torch.core.planner import PlanConsts
+    from repro_torch.core.slab import SlotRef
+    from repro_torch.core.store import ExpertStore
+    from repro_torch.core.workload import zipf_trace
+    from repro_torch.kernels import _build
+    truth = ExpertStore(store_dir)
+    eng = ZipMoEEngine(ExpertStore(store_dir), n_experts=cfg.n_experts,
+                       n_layers=cfg.n_layers, L=6, freq_decay=0.9,
+                       device_cache=True, device=dev)
+    want = {}
+
+    def store_bits(l, e):
+        if (l, e) not in want:
+            grp = truth.load_group((l, e))
+            want[(l, e)] = [bitfield.from_bits(grp[t.name]).to(dev)
+                            for t in group.tensors]
+        return want[(l, e)]
+
+    def as_tensor(v):
+        if isinstance(v, SlotRef):
+            return v.read()
+        if isinstance(v, np.ndarray):
+            return bitfield.from_bits(v).to(dev)
+        return v
+
+    watched, migrations, l1_refs = [], [], []
+    plain_replan = eng.replan
+
+    def replan(reason="manual", hit_rate=None):
+        before = {l: eng._slabs.get(l) for l in (0, 1)}
+        slots = {l: dict(s.slot_of) if s is not None else {}
+                 for l, s in before.items()}
+        if before[1] is not None:
+            l1_refs.extend(v for ent in eng.caches[1].pools["F"].values()
+                           if ent.payload is not None
+                           for v in ent.payload.full.values()
+                           if isinstance(v, SlotRef) and v.slab is before[1])
+        out = plain_replan(reason=reason, hit_rate=hit_rate)
+        torch.cuda.synchronize()
+        caps = {}
+        for l in (0, 1):
+            old, new = before[l], eng._slabs.get(l)
+            caps[l] = [old.capacity if old is not None else None,
+                       new.capacity if new is not None else None]
+            if old is not None and new is not None and new is not old:
+                carried = set(slots[l]) & set(new.slot_of)
+                if carried:
+                    migrations.append({"layer": l, "carried": len(carried),
+                                       "from": old.capacity,
+                                       "to": new.capacity})
+        checked = 0
+        for e, ent in eng.caches[0].pools["F"].items():
+            if ent.payload is None:
+                continue
+            ref_t = store_bits(0, e)
+            for tidx, v in ent.payload.full.items():
+                check(not isinstance(v, SlotRef) or v.valid,
+                      f"migration: layer 0 expert {e} holds a stale SlotRef "
+                      f"after the {reason} re-plan")
+                check(torch.equal(as_tensor(v).view(torch.int16),
+                                  ref_t[tidx].view(torch.int16)),
+                      f"migration: layer 0 expert {e} tensor {tidx} differs "
+                      f"from the store after the {reason} re-plan")
+                checked += 1
+        watched.append({"reason": reason, "wall_ms":
+                        eng.planner.replans[-1]["wall_s"] * 1e3,
+                        "slab_caps": caps, "checked_tensors": checked})
+        return out
+
+    eng.replan = replan
+    eng.plan_consts = lambda layer: PlanConsts(u=1.0, v=0.1, c=1.0, L=4, K=4,
+                                               n_tensors=3)
+    phase1 = zipf_trace(cfg.n_experts, 2, MIGRATION_PHASE, alpha=1.4, seed=5)
+    phase2 = zipf_trace(cfg.n_experts, 2, MIGRATION_PHASE, alpha=1.4,
+                        seed=99)
+    slab1_seen = False
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        eng.configure_planner(MIGRATION_BUDGET_EXPERTS * group.full_bytes,
+                              replan_every=MIGRATION_REPLAN_EVERY,
+                              plan_step=0.25, drift_margin=0.05,
+                              profile_per_layer=False)
+        for i, sel in enumerate(phase1 + phase2):
+            eng.fetch_experts(0, sorted(sel))
+            if i < len(phase1) and i % 3 == 0:      # layer 1 idles at T/2
+                eng.fetch_experts(1, sorted(sel))
+            slab1_seen = slab1_seen or eng._slabs.get(1) is not None
+            eng.note_step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        ps = eng.plan_summary()
+        final_slab1 = eng._slabs.get(1)
+    finally:
+        eng.shutdown()
+        truth.close()
+    reasons = [ev["reason"] for ev in ps["replans"]]
+    for w in watched:
+        print(f"migration: re-plan ({w['reason']}) in {w['wall_ms']:.3f} ms, "
+              f"slab capacities [before, after] {w['slab_caps']}, "
+              f"{w['checked_tensors']} layer-0 F tensors bit-exact", flush=True)
+    print(f"migration: trace {len(phase1)} + {len(phase2)} steps (the JAX "
+          f"package's drift test; not cut) in {wall:.1f} s; re-plan reasons "
+          f"{reasons}; migrations {migrations}; launches {launches}",
+          flush=True)
+    check("drift" in reasons, f"migration: no drift re-plan in {reasons}")
+    check(slab1_seen and final_slab1 is None,
+          f"migration: layer 1's slab seen {slab1_seen}, at the end "
+          f"{final_slab1}")
+    check(l1_refs and not any(r.valid for r in l1_refs),
+          f"migration: {len(l1_refs)} SlotRefs into layer 1's slabs taken "
+          f"before a re-plan, {sum(r.valid for r in l1_refs)} still valid")
+    check(migrations, "migration: no re-plan carried residents into a new "
+          "slab")
+    return launches, {"reasons": reasons, "migrations": migrations,
+                      "replans": watched, "stale_refs_checked": len(l1_refs),
+                      "wall_s": wall}
 
 
 def cfg_moe_layers(cfg):
@@ -878,7 +1131,6 @@ def main():
     dev = torch.device("cuda", 0)
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    import dataclasses
     cfg = dataclasses.replace(get_config(ARCH), n_layers=N_LAYERS)
     print(f"config {ARCH}: d_model {cfg.d_model}, {cfg.n_heads} heads x "
           f"{cfg.head_dim}, {cfg.n_experts} experts top-{cfg.top_k}, "

@@ -72,8 +72,16 @@ copies on the device's default stream, the stream the decode thread's
 kernels run on: a worker hands its planes over only after the copy was
 enqueued, so every splice-admit is ordered after the upload it reads.
 
-Left out of the port so far: the peer-HBM (P) tier and the live §3.4
-planner hooks (``configure_planner``/``replan``/``apply_plans``).
+Live §3.4 planning (:meth:`ZipMoEEngine.configure_planner`) splits one
+global byte budget across the layers by observed activity, solves each
+layer's pools with ``core/planner``, and applies the plans between decode
+steps: a re-sized slab's residents move slot to slot on the device (a view
+of the old slot copied into the new one), and the old slab is retired.
+The copy and the old buffer's release both run on the decode thread's
+stream, so the allocator cannot hand the old memory out before the copy
+has read it.
+
+Left out of the port so far: the peer-HBM (P) tier.
 """
 from __future__ import annotations
 
@@ -411,6 +419,15 @@ class ZipMoEEngine:
                 continue
             self.caches[l].cost_bytes = bps if cache_mode != "flat" else \
                 {"F": bps["F"], "C": 0.0, "S": 0.0, "E": 0.0}
+        # live §3.4 planner (configure_planner): byte-budgeted pool plans
+        # applied atomically between steps, re-planned under drift
+        self.planner = None
+        self.replan_every = 0
+        self._plan_steps = 0
+        self._plan_probe_base: Optional[Dict[str, object]] = None
+        self._plan_access_base: Dict[int, int] = {}
+        self._probe_acc_base: Dict[int, int] = {}
+        self._layer_rates: Dict[int, float] = {}   # EMA accesses per probe
         # ---- persistent worker pool (one I/O thread + L decompressors) ----
         # checkz factories return plain primitives unless ZIPMOE_CHECK=1,
         # in which case acquires feed the lock-order cycle detector.
@@ -507,7 +524,8 @@ class ZipMoEEngine:
         used to die with ``KeyError: (L, None)``).  A layer-targeted probe
         also lands in the per-layer u/c overlay (shard sizes differ per
         layer, so the I/O and decompression costs do too) — the scheduler's
-        task costs read the overlay with the global probe as fallback."""
+        task costs and the planner's PlanConsts read the overlay with the
+        global probe as fallback."""
         if layer is None:
             key = next(iter(self.store.groups))
         else:
@@ -531,6 +549,16 @@ class ZipMoEEngine:
             self._u_layer[layer] = self.u
             self._c_layer[layer] = self.c
         return self.u, self.c
+
+    def profile_layers(self, reps: int = 2) -> Dict[int, Tuple[float, float]]:
+        """Per-layer u/c from each layer's real shard sizes: one probe per
+        layer that has expert groups.  Sharpens both the scheduler's
+        compute-dominance test and the live planner's per-layer
+        PlanConsts."""
+        out = {}
+        for l in sorted({l for (l, _) in self.store.groups}):
+            out[l] = self.profile(layer=l, reps=reps)
+        return out
 
     def _layer_costs(self, layer: int) -> Tuple[float, float, float]:
         """(u, c, ρ) for one layer: the profiled per-layer overlay when
@@ -556,6 +584,22 @@ class ZipMoEEngine:
         return self.stack.bytes_per_state({
             "full": float(g.full_bytes), "sm": float(g.sm_bytes),
             "e": float(g.e_bytes)})
+
+    def plan_consts(self, layer: int):
+        """The layer's :class:`~repro_torch.core.planner.PlanConsts`, from
+        the per-layer profiled u/c/ρ and the layer's real chunk layout
+        (``peer=0``: the port has no peer tier, and the term vanishes
+        exactly)."""
+        from repro_torch.core.planner import PlanConsts
+        expert = min((e for (l, e) in self.store.groups if l == layer),
+                     default=None)
+        if expert is None:
+            raise KeyError(f"no expert groups for layer {layer}")
+        g = self.store.groups[(layer, expert)]
+        K = max(1, len(g.tensors[0].e_sizes))
+        u, c, rho = self._layer_costs(layer)
+        return PlanConsts(u=u, v=rho * u / K, c=c, L=self.L, K=K,
+                          n_tensors=len(g.tensors), peer=0.0)
 
     # ------------------------------------------------------------------
     # device-resident slabs (device_cache mode)
@@ -835,6 +879,208 @@ class ZipMoEEngine:
             cache.reset_stats()
         if self._window_every:
             self._window_base = self._cache_counters()
+        if self.planner is not None:
+            self._plan_probe_base = self._cache_counters()
+            # hit/miss counters restart at zero: restart the per-layer
+            # access deltas with them or replan weights would go negative
+            self._plan_access_base = {}
+            self._probe_acc_base = {}
+
+    # ---- live §3.4 planning (byte-budgeted pools, online re-planning) ----
+    def configure_planner(self, mem_budget: float, *, replan_every: int = 32,
+                          plan_step: float = 0.125,
+                          drift_margin: float = 0.05,
+                          drift_min_accesses: int = 0,
+                          profile_per_layer: bool = True,
+                          initial_plan: bool = True,
+                          budget_split: str = "proportional"):
+        """Turn on byte-budgeted live pool planning: one global byte budget
+        for ALL layers' pools, split by observed layer activity and solved
+        per layer by the §3.4 planner on that layer's live rank statistics,
+        real residency costs, and per-layer profiled PlanConsts.  Plans are
+        applied atomically between decode steps; every ``replan_every``
+        calls to :meth:`note_step` the windowed hit rate is probed and a
+        drift (see ``LivePlanner.should_replan``) triggers a re-plan.
+        ``initial_plan=False`` keeps the constructor capacities (e.g. an
+        explicit ``pool_sizes`` override) until the first drift re-plan.
+
+        ``budget_split="waterfill"`` grants the cross-layer budget by
+        marginal expected-makespan gain per byte instead of proportionally
+        to activity (see ``LivePlanner._waterfill_budgets``)."""
+        from repro_torch.core.planner import LivePlanner
+        active = ("F",) if self.cache_mode == "flat" else \
+            ("F", "C", "S", "E")
+        self.planner = LivePlanner(mem_budget, step=plan_step,
+                                   drift_margin=drift_margin,
+                                   drift_min_accesses=drift_min_accesses,
+                                   active=active, order=self.stack.order,
+                                   budget_split=budget_split)
+        self.replan_every = max(0, int(replan_every))
+        self._plan_steps = 0
+        self._plan_probe_base = None
+        self._plan_access_base = {}
+        self._probe_acc_base = {}
+        self._layer_rates = {}
+        if profile_per_layer:
+            self.profile_layers()
+        if initial_plan:
+            self.replan(reason="initial")
+        else:
+            # explicit pool_sizes override: the static capacities are the
+            # baseline — only observed drift replaces them, never the
+            # bootstrap "initial" probe
+            self.planner.seed()
+        return self.planner
+
+    def replan(self, reason: str = "manual",
+               hit_rate: Optional[float] = None):
+        """Solve fresh per-layer plans from the live trackers and apply
+        them.  Must run on the decode thread between steps (the same
+        single-mutator discipline as cache admission) — :meth:`note_step`
+        calls it there; tests and the smoke may call it directly to force a
+        re-plan.  The event it logs also carries the host wall time of the
+        solve and the apply (``wall_s``; slab migrations are enqueued on the
+        card, not waited for)."""
+        assert self.planner is not None, "configure_planner() first"
+        t0 = time.perf_counter()
+        layers = sorted({l for (l, _) in self.store.groups})
+        stats, bps, consts, acc = {}, {}, {}, {}
+        for l in layers:
+            tr = self.trackers[l]
+            stats[l] = tr.inclusion_probs()
+            bps[l] = self._bytes_per_state(l)
+            consts[l] = self.plan_consts(l)
+            acc[l] = sum(self.caches[l].hits.values()) + self.caches[l].misses
+        # budget weights = RECENT per-layer activity — the probe-interval
+        # EMA when the step clock is running, else accesses since the last
+        # plan.  A layer traffic has abandoned goes genuinely cold (its
+        # tracker counts only decay on its own records, so all-time mass
+        # would keep feeding it budget).  First plan / empty interval falls
+        # back to the decayed tracker mass.
+        weights = {l: self._layer_rates.get(l, 0.0) for l in layers}
+        if not any(weights.values()):
+            base = self._plan_access_base
+            weights = {l: float(max(0, acc[l] - base.get(l, 0)))
+                       for l in layers}
+        if not any(weights.values()):
+            weights = {l: float(self.trackers[l].counts.sum())
+                       for l in layers}
+        self._plan_access_base = acc
+        plans = self.planner.plan(stats, bps, consts, weights=weights)
+        self.apply_plans(plans)
+        self.planner.note_plan(self._plan_steps, reason, hit_rate)
+        self.planner.replans[-1]["wall_s"] = time.perf_counter() - t0
+        return plans
+
+    def apply_plans(self, plans):
+        """Apply per-layer :class:`~repro_torch.core.planner.LayerPlan`s
+        between steps: resize each layer's pools (graceful shrink —
+        pinned/mid-step residents are never evicted; churn-free grow), then
+        re-size the layer's device slab from the planned F-pool **bytes** —
+        a cold layer (zero F bytes) releases its slab's device memory
+        entirely, with generation-counter invalidation of outstanding
+        SlotRefs."""
+        for l, plan in sorted(plans.items()):
+            cache = self.caches[l]
+            if self.cache_mode == "flat":
+                cache.resize(plan.sizes.get("F", 0), plan.cap_bytes)
+            else:
+                cache.resize(plan.sizes, plan.cap_bytes)
+            if self.device_cache:
+                bps = self._bytes_per_state(l)
+                slab_cap = 0
+                if bps and bps["F"] > 0:
+                    slab_cap = int(plan.cap_bytes.get("F", 0.0) // bps["F"])
+                self._apply_slab_plan(l, min(slab_cap, self.trackers[l].n))
+
+    def _apply_slab_plan(self, layer: int, new_cap: int):
+        """Grow/shrink/free one layer's device slab to the byte-planned
+        slot count.  Residents migrate on the device (a view of the old
+        slot copied into the new slab's slot on the decode thread's stream,
+        payload refs swapped); the old slab is then retired so every
+        outstanding SlotRef to it turns stale.  Its buffers are released on
+        the same stream, after the copies that read them."""
+        self._slab_caps[layer] = max(0, int(new_cap))
+        old = self._slabs.pop(layer, None)
+        if old is None:
+            # not built yet (or memoized as capacity-0): the next _slab()
+            # call lazily builds at the newly planned capacity
+            return
+        if new_cap == old.capacity:
+            self._slabs[layer] = old
+            return
+        if new_cap <= 0:
+            old.retire()
+            self._slabs[layer] = None
+            return
+        new = DeviceSlabCache(layer, old.shapes, new_cap, self.device)
+        fpool = self.caches[layer].pools["F"]
+        names = None
+        for e, ent in fpool.items():
+            pl = ent.payload
+            if not isinstance(pl, ExpertPayload) or not pl.full:
+                continue
+            if not self._full_payload_usable(pl):
+                continue               # stale refs: _collect refetches later
+            if not new._free:
+                break    # deferred-trim overflow (all pinned): keep old refs
+            if names is None:
+                names = [t.name for t in
+                         self.store.groups[(layer, e)].tensors]
+            tensors = {}
+            for tidx, v in pl.full.items():
+                tensors[names[tidx]] = v.read() if isinstance(v, SlotRef) \
+                    else v
+            refs = new.put(e, tensors)
+            pl.full = {tidx: refs[names[tidx]] for tidx in pl.full}
+        old.retire()
+        self._slabs[layer] = new
+
+    def _planner_probe(self) -> Tuple[Optional[float], int]:
+        """(hit rate, accesses) over the steps since the last probe — the
+        drift signal, windowed on the planner's own clock so it works at
+        any ``cache_window`` setting (hit rate None before any accesses;
+        the access count lets ``should_replan`` ignore near-empty windows).
+        The probe also refreshes each layer's recent-activity rate (EMA of
+        accesses per probe interval), which is what the budget split
+        weighs — a layer traffic has abandoned decays toward a zero share
+        within a couple of probe windows."""
+        acc_l = {l: sum(c.hits.values()) + c.misses
+                 for l, c in self.caches.items()}
+        if self._probe_acc_base:
+            for l, a in acc_l.items():
+                d = max(0, a - self._probe_acc_base.get(l, 0))
+                r = self._layer_rates.get(l)
+                self._layer_rates[l] = d if r is None else 0.3 * r + 0.7 * d
+        self._probe_acc_base = acc_l
+        cur = self._cache_counters()
+        base = self._plan_probe_base
+        self._plan_probe_base = cur
+        if base is None:
+            return None, 0
+        hits = sum(cur["hits"].values()) - sum(base["hits"].values())
+        misses = cur["misses"] - base["misses"]
+        acc = hits + misses
+        return (hits / acc if acc > 0 else None), acc
+
+    def plan_summary(self) -> Dict[str, object]:
+        """Live §3.4 planning telemetry: per-layer plans (sizes +
+        cap_bytes + budget share), the replan event log, and resident
+        bytes vs the global budget — the byte-denominated complement to
+        :meth:`cache_summary`."""
+        occ = collections.Counter()
+        for cache in self.caches.values():
+            occ.update(cache.bytes_occupancy())
+        out: Dict[str, object] = {
+            "enabled": self.planner is not None,
+            "bytes_occupancy": dict(occ),
+            "bytes_resident": float(sum(occ.values())),
+        }
+        if self.planner is not None:
+            out.update(self.planner.summary())
+            out["replan_every"] = self.replan_every
+            out["plan_steps"] = self._plan_steps
+        return out
 
     # ---- windowed telemetry (warm-up vs steady state) --------------------
     def _cache_counters(self) -> Dict[str, object]:
@@ -859,8 +1105,20 @@ class ZipMoEEngine:
             else None
 
     def note_step(self):
-        """Advance the windowed-telemetry step clock (one decode step).  The
-        serving layer calls this once per ``decode_step``."""
+        """Advance the windowed-telemetry and live-planner step clocks (one
+        decode step).  The serving layer calls this once per
+        ``decode_step``; a replayed trace calls it once per trace step.
+        Every ``replan_every`` steps the planner probes the recent hit rate
+        and — on drift (or when no plan exists yet) — re-plans and applies
+        the new pool plan right here, i.e. atomically *between* steps on
+        the decode thread."""
+        if self.planner is not None and self.replan_every:
+            self._plan_steps += 1
+            if self._plan_steps % self.replan_every == 0:
+                hr, acc = self._planner_probe()
+                reason = self.planner.should_replan(hr, accesses=acc)
+                if reason:
+                    self.replan(reason=reason, hit_rate=hr)
         if not self._window_every:
             return
         self._window_steps += 1

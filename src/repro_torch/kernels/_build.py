@@ -8,9 +8,11 @@ directory keyed by a hash of the sources (``build/kernels/<hash>/`` at the
 root of the checkout, which ``.gitignore`` lists), so an edit rebuilds and
 an unchanged tree reuses the library.
 
-Each kernel wrapper counts its launches in :data:`LAUNCHES` (one per kernel
-launch, nowhere else), so a run can show the main path went through the
-kernels.
+Each kernel wrapper counts its launches in :data:`LAUNCHES` through
+:func:`count_launch` (one per kernel launch, nowhere else), so a run can show
+the main path went through the kernels.  The wrappers run on the decode
+thread and, with ``device_recovery``, on the engine's I/O and decompression
+workers at once, so the count is taken under a lock of its own.
 """
 from __future__ import annotations
 
@@ -35,14 +37,22 @@ LAUNCHES: Dict[str, int] = {"splice": 0, "splice_admit": 0, "slab_gemm": 0,
                             "grouped_gemm": 0, "zip_gemm_grouped": 0,
                             "zip_gemm": 0}
 
-_lock = threading.Lock()
+_lock = threading.Lock()          # the build
+_count_lock = threading.Lock()    # LAUNCHES: never waits on nvcc
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
 
 
+def count_launch(name: str) -> None:
+    """Add one launch of kernel `name` to :data:`LAUNCHES`."""
+    with _count_lock:
+        LAUNCHES[name] += 1
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"

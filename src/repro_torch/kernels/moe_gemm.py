@@ -172,7 +172,7 @@ def _launch(name: str, fn, *args, device) -> None:
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, f"zipmoe_{name}")
-    _build.LAUNCHES[name] += 1
+    _build.count_launch(name)
 
 
 def _launch_gemm(name: str, fn, *args, n_tiles: int, k: int, f: int,
@@ -207,7 +207,7 @@ def slab_ragged_gemm(x: torch.Tensor, buf: torch.Tensor,
         if tile_slot.device.type != "cpu":
             raise ValueError("tile_slot must be on the host, so its slots "
                              "can be range-checked before launch")
-        tile_slot = tile_slot.numpy()
+        tile_slot = tile_slot.numpy()  # host-sync-ok: a host tensor
     # host-sync-ok: host slot vector, validated before upload
     ts = np.ascontiguousarray(tile_slot, dtype=np.int32)
     if ts.shape != (T // BLOCK_C,):

@@ -41,5 +41,5 @@ def recover_bf16(exp: torch.Tensor, sm: torch.Tensor) -> torch.Tensor:
         rc = lib.zipmoe_splice(exp.data_ptr(), sm.data_ptr(), out.data_ptr(),
                                n, stream)
     _build.check(rc, "zipmoe_splice")
-    _build.LAUNCHES["splice"] += 1
+    _build.count_launch("splice")
     return out

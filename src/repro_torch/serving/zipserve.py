@@ -52,10 +52,20 @@ decompression + bit-splice recovery) before the FFN runs.
   per-expert grouped-GEMM times measured on the card on first use of each
   (layer, expert-count, token-column) bucket and refined from the real FFN
   wall time, instead of class constants.
+* **Byte-budgeted live pool planning** (``mem_budget=...``) — instead of
+  fixed per-layer expert counts, one global byte budget is split across
+  MoE layers by observed activity and each layer's F/C/S/E partition is
+  solved by the §3.4 planner (``core/planner``) on its live rank
+  statistics, real per-expert residency costs, and per-layer profiled
+  u/c.  Every ``replan_every`` steps a windowed hit-rate probe detects
+  drift and re-plans; plans apply between steps (graceful pool shrink,
+  churn-free grow, device slabs re-sized from the planned F-pool *bytes*,
+  their residents moved slot to slot on the card — a cold layer's slab is
+  freed entirely).  ``plan_summary()`` reports per-layer plans, replan
+  events, and byte occupancy.
 
-Not ported yet (they raise ``NotImplementedError``): ``mem_budget`` live
-planning, the multi-device peer tier (``mesh_devices``), and continuous
-batching (``decode_rows``).
+Not ported yet: the multi-device peer tier (``mesh_devices`` raises
+``NotImplementedError``) and continuous batching (``decode_rows``).
 
 ``ZipServer.decode_step`` is validated against the fully-resident
 ``models.decode_step`` and against the JAX package's ``ZipServer``.
@@ -124,7 +134,9 @@ class ZipServer:
                  profile_p_times: bool = False, cross_layer_depth=0,
                  freq_decay: float = 1.0, cache_window: int = 0,
                  device_cache: bool = False,
-                 mem_budget: Optional[float] = None, mesh_devices: int = 1,
+                 mem_budget: Optional[float] = None,
+                 replan_every: int = 32, plan_step: float = 0.125,
+                 budget_split: str = "proportional", mesh_devices: int = 1,
                  verify: Optional[bool] = None, faults=None,
                  fetch_deadline_s: Optional[float] = 120.0, device=None):
         """``device_recovery`` (the JAX package's ``use_pallas_recovery``)
@@ -132,10 +144,8 @@ class ZipServer:
         instead of numpy: the grouped/ragged FFNs then take the spliced
         tensor on the device, the ``"loop"`` oracle downloads it."""
         assert ffn_impl in ("ragged", "grouped", "loop"), ffn_impl
-        for name, on in (("mem_budget", mem_budget is not None),
-                         ("mesh_devices", mesh_devices != 1)):
-            if on:
-                raise NotImplementedError(f"{name} is not ported yet")
+        if mesh_devices != 1:
+            raise NotImplementedError("mesh_devices is not ported yet")
         # "auto": start synchronous and let the observed hidden-fetch
         # fraction tune the depth online (see _tune_depth)
         self._auto_depth = cross_layer_depth == "auto"
@@ -184,6 +194,16 @@ class ZipServer:
             # the plane uploads and splice time land in h2d_bytes/splice_ms
             self.engine.recover = self.engine._recover_device
         self.engine.profile()
+        if mem_budget is not None:
+            # byte-budgeted live pool planning (§3.4 online): per-layer
+            # plans from one global byte budget, re-planned under drift.
+            # An explicit pool_sizes override keeps the static capacities
+            # until the first drift-triggered re-plan.
+            self.engine.configure_planner(mem_budget,
+                                          replan_every=replan_every,
+                                          plan_step=plan_step,
+                                          initial_plan=pool_sizes is None,
+                                          budget_split=budget_split)
         if cache_window:
             self.engine.enable_cache_windows(cache_window)
         # measured per-expert grouped-GEMM times feeding Algorithm 1's p_n
@@ -583,6 +603,12 @@ class ZipServer:
         ``profile_p_times`` is off)."""
         return self.profiler.summary()
 
+    def plan_summary(self) -> Dict[str, object]:
+        """Live §3.4 planning telemetry (``mem_budget`` mode): per-layer
+        plans, replan events, and byte occupancy — next to
+        :meth:`cache_summary` / :meth:`overlap_summary`."""
+        return self.engine.plan_summary()
+
     # ------------------------------------------------------------------
     # expert FFN implementations
     # ------------------------------------------------------------------
@@ -956,7 +982,7 @@ class ZipServer:
         x = apply_norm(p["final_norm"], x, cfg)
         if self._auto_depth:
             self._tune_depth()
-        self.engine.note_step()       # windowed cache telemetry step clock
+        self.engine.note_step()   # cache-window and live-planner step clocks
         return x @ p["lm_head"]["w"], caches
 
     def drain_pending(self) -> int:

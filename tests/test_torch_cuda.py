@@ -375,36 +375,59 @@ def test_gemms_reject_unaligned_x(cuda):
     (dict(ffn_impl="grouped", fused_recovery=True), "zip_gemm_grouped"),
     (dict(ffn_impl="loop", fused_recovery=True), "zip_gemm"),
     (dict(profile_p_times=True), "grouped_gemm"),
+    (dict(ffn_impl="grouped", device_recovery=True), "splice"),
+    (dict(ffn_impl="ragged", device_cache=True, mem_budget=6,
+          replan_every=2, pool_sizes=None), "slab_gemm"),
 ], ids=["grouped-host", "grouped-device", "fused-batched", "fused-loop",
-        "profile"])
+        "profile", "device-recovery", "mem-budget"])
 def test_zipserver_new_paths_launch_kernels(cuda, tmp_path, mode, kernel):
-    """Smoke-size ZipServer on the card through each FFN path this slice
-    added: its kernel launches, and the logits match the resident model on
-    the card within 2% of the largest |logit|."""
+    """Smoke-size ZipServer on the card through each FFN path and serving
+    mode ported since the first slice: its kernel launches, and the logits
+    match the resident model on the card within 2% of the largest |logit|.
+    ``device_recovery`` splices on the engine's worker threads: every
+    splice it counts is one launch.  ``mem_budget`` (in F-expert bytes)
+    re-plans before step 2; whenever the plan gives F bytes, admissions
+    land in the planned slab through the splice-admit kernel."""
     from repro_torch.configs import get_smoke_config
-    from repro_torch.core.store import build_store
+    from repro_torch.core.store import ExpertStore, build_store
     from repro_torch.models import decode_step, init_cache, init_params
     from repro_torch.serving.zipserve import ZipServer
     cfg = get_smoke_config("qwen2-moe-a2.7b", n_layers=2)
     params = init_params(cfg, seed=0, device=cuda)
     build_store(params, cfg, str(tmp_path), device=cuda)
-    zs = ZipServer(params, cfg, str(tmp_path), L=2,
-                   pool_sizes={"F": 2, "C": 2, "S": 2, "E": 2}, device=cuda,
-                   **mode)
+    kw = {"pool_sizes": {"F": 2, "C": 2, "S": 2, "E": 2}, **mode}
+    if "mem_budget" in kw:
+        st = ExpertStore(str(tmp_path))
+        kw["mem_budget"] *= st.groups[(0, 0)].full_bytes
+        st.close()
+    zs = ZipServer(params, cfg, str(tmp_path), L=2, device=cuda, **kw)
     try:
         B = 2
         caches, rcache = zs.init_cache(B, 4), init_cache(cfg, B, 4, cuda)
         tok = torch.zeros((B, 1), dtype=torch.long, device=cuda)
         _build.reset_launches()
+        ops0 = zs.engine.splice_ops
         for i in range(4):
+            if i == 2 and "mem_budget" in kw:
+                zs.engine.replan(reason="forced")
             lg, caches = zs.decode_step(tok, caches, i)
             rl, rcache = decode_step(params, cfg, tok, rcache, i)
             err = (lg.float() - rl.float()).abs().max().item()
             assert err <= 0.02 * rl.float().abs().max().item(), (i, err)
             tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+        zs.drain_pending()
         torch.cuda.synchronize()
         assert _build.LAUNCHES[kernel] > 0, _build.LAUNCHES
         if mode.get("profile_p_times"):
             assert zs.p_time_summary()["n_measurements"] > 0
+        if mode.get("device_recovery"):
+            assert _build.LAUNCHES["splice"] == zs.engine.splice_ops - ops0
+            assert _build.LAUNCHES["grouped_gemm"] > 0
+        if "mem_budget" in kw:
+            ps = zs.plan_summary()
+            assert ps["n_plans"] >= 2 and ps["n_replans"] >= 1
+            assert ps["bytes_resident"] <= kw["mem_budget"] + 1e-6
+            if any(lp["sizes"]["F"] > 0 for lp in ps["layers"].values()):
+                assert _build.LAUNCHES["splice_admit"] > 0, _build.LAUNCHES
     finally:
         zs.close()

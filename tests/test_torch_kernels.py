@@ -318,3 +318,47 @@ def test_decompose_ref_inverts_recover():
     assert np.array_equal(sm.numpy(), np.asarray(want_s))
     assert torch.equal(ref.recover_bf16_ref(exp, sm).view(torch.int16),
                        w.view(torch.int16))
+
+
+def test_launch_count_loses_no_increment():
+    """``_build.count_launch`` is called from the decode thread and, with
+    ``device_recovery``, from the engine's I/O and decompression workers at
+    once.  The count and its reset go through one lock of their own (not
+    the build's): a count waits while that lock is held, and 32 threads
+    counting with a short switch interval lose no increment."""
+    import sys
+    import threading
+    from repro_torch.kernels import _build
+    _build.reset_launches()
+    with _build._count_lock:
+        for fn in (lambda: _build.count_launch("splice"),
+                   _build.reset_launches):
+            t = threading.Thread(target=fn)
+            t.start()
+            t.join(timeout=0.2)
+            assert t.is_alive()               # waits on the count lock
+            waiting = t
+    waiting.join(timeout=10)
+    assert not waiting.is_alive()
+    assert _build.LAUNCHES["splice"] == 0     # counted, then reset
+    n_threads, per = 32, 1000
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        start = threading.Barrier(n_threads)
+
+        def work():
+            start.wait(timeout=30)
+            for _ in range(per):
+                _build.count_launch("splice")
+
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert _build.LAUNCHES["splice"] == n_threads * per
+    finally:
+        sys.setswitchinterval(old)
+        _build.reset_launches()

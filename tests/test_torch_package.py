@@ -99,13 +99,13 @@ def test_unported_options_raise(tmp_path):
     cfg = get_smoke_config("qwen2-moe-a2.7b", n_layers=1)
     params = init_params(cfg, seed=0, device="cpu")
     build_store(params, cfg, str(tmp_path), device="cpu")
-    for kw in (dict(mem_budget=1e6), dict(mesh_devices=2)):
-        with pytest.raises(NotImplementedError):
-            ZipServer(params, cfg, str(tmp_path), device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        ZipServer(params, cfg, str(tmp_path), device="cpu", mesh_devices=2)
     # the FFN paths and options ported since construct on the CPU
     for kw in (dict(ffn_impl="grouped"), dict(ffn_impl="loop"),
                dict(fused_recovery=True), dict(profile_p_times=True),
-               dict(device_recovery=True)):
+               dict(device_recovery=True), dict(mem_budget=1e6),
+               dict(mem_budget=1e6, device_cache=True)):
         ZipServer(params, cfg, str(tmp_path), device="cpu", **kw).close()
     # fused recovery keeps host planes; device slabs keep spliced tensors
     with pytest.raises(AssertionError):
