@@ -57,6 +57,28 @@ failure exits non-zero:
      profiled PlanConsts, each plan's sizes and each re-plan's wall time
      are printed.
 
+   Then the serving phase, from the same store: 8 requests (prompt
+   lengths 4..12 from a seeded rng, 8 greedy tokens each, at most 4 at
+   once, arrivals staggered by 0.5 s) through ``BatchServer``:
+
+   * ``continuous``: continuous batching over ``ZipServer(device_cache=
+     True, ffn_impl="ragged")`` (``decode_rows``, KV pages on the card):
+     every request completes, the page pool returns to 0 bytes, the
+     ragged path's three kernels launch, and each request's logits are
+     held against the resident model fed its prompt and outputs (``prefill``
+     + ``decode_step``) on identically routed positions;
+   * ``continuous-solo``: two of the requests alone through fresh servers:
+     bit-identical logits or the largest difference, and the same tokens
+     wherever the logits decide them; a probe prints which of the step's
+     products give a row other bits in a batch than alone on the card;
+   * ``static``: the epoch baseline (``continuous=False``) over a fresh
+     ``ZipServer``; ``resident``: prefill + decode on resident weights;
+   * the port's CLI once as a subprocess (``zipmoe-batch``): exit 0 and
+     its ``metrics:`` and ``cache:`` lines.
+
+   Each path prints TTFT, TPOT and queue-delay percentiles, throughput,
+   hit rate, KV pool bytes and its per-request table.
+
    Each path's launch counts are reset just before its first step and
    read just after its last (after its prefetch jobs are drained where
    the counts are compared with the engine's); every kernel must launch
@@ -106,6 +128,19 @@ PLAN_FORCED_AT = 4
 MIGRATION_PHASE = 40
 MIGRATION_BUDGET_EXPERTS = 10
 MIGRATION_REPLAN_EVERY = 8
+# the serving phase's traffic: 8 requests, prompt lengths drawn from a
+# seeded rng over 4..12, 8 greedy tokens each, at most 4 decoding at once,
+# arrivals staggered by half a second; two requests are also served alone
+SERVE_REQUESTS = 8
+SERVE_PROMPT_LENS = (4, 12)
+SERVE_NEW_TOKENS = 8
+SERVE_CONCURRENCY = 4
+SERVE_ARRIVALS = (0.0, 0.0, 0.0, 0.0, 0.5, 0.5, 1.0, 1.0)
+SERVE_SOLO = (0, SERVE_REQUESTS - 1)       # indices of the solo requests
+# the port's CLI, once, at its own smoke size
+CLI_ARGS = ("--mode", "zipmoe-batch", "--device-cache", "--requests", "4",
+            "--max-new", "4")
+CLI_TIMEOUT_S = 300
 # the kernels each served path must launch (phases 3 and 4); the planned
 # path must also launch the splice-admit when its plans give F bytes, the
 # standalone splice when they do not
@@ -118,6 +153,7 @@ PATH_KERNELS = {
     "device-recovery": ("splice", "grouped_gemm"),
     "planned": ("slab_gemm",),
     "migration": ("splice_admit",),
+    "continuous": ("splice", "splice_admit", "slab_gemm"),
 }
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12     # dense bf16 tensor-core peak
@@ -130,9 +166,11 @@ GEMM_REL_TOL = 2.0 ** -7
 # whose gates are rounded at other places.  Measured 0.74% of the largest
 # |logit| on the H100; the CPU parity tests hold the port to 2% of it
 LOGIT_REL_TOL = 0.02
-# phase 2's device-side wait before each timed sample (med_ms)
+# phase 2's device-side wait before each timed sample (med_ms): 8x the
+# host's calibrated enqueue; a host hiccup on the H100's host has made one
+# sample's enqueue outlast a 4x wait
 WAIT_MIN_MS = 1.0
-WAIT_FACTOR = 4.0
+WAIT_FACTOR = 8.0
 CALIBRATE_WAIT_MS = 50.0
 
 
@@ -971,9 +1009,343 @@ def main_path(torch, np, dev, cfg, store_dir):
           flush=True)
     del planned
 
-    # -- (g) slab migration on the engine, with pinned planning constants --
+    # -- (g) the serving front end: continuous, solo, static, resident -----
+    launches["continuous"], numbers["serving"] = serving_phase(
+        torch, np, dev, cfg, params, store_dir)
+
+    # -- (h) slab migration on the engine, with pinned planning constants --
     launches["migration"], numbers["migration"] = migration_run(
         torch, np, dev, cfg, store_dir, store.groups[min(store.groups)])
+    return launches, numbers
+
+
+# ----------------------------------------------------------------------------
+# phase 3, the serving front end
+# ----------------------------------------------------------------------------
+def serve_requests(torch, cfg, prompts, arrivals, max_len, *, params=None,
+                   zs=None, continuous=True, count=False):
+    """One BatchServer run of `prompts` (greedy, each recording its logits);
+    with `count` the launch counters are reset just before ``run()`` and
+    read just after it (prefetch jobs drained first).  Returns the server,
+    its finished requests in rid order, launches, and the wall seconds and
+    device memory (allocated before, peak) of the run."""
+    from repro_torch.kernels import _build
+    from repro_torch.serving.server import BatchServer
+    srv = BatchServer(params if zs is None else None, cfg,
+                      max_batch=SERVE_CONCURRENCY, max_len=max_len,
+                      zip_server=zs, max_concurrency=SERVE_CONCURRENCY,
+                      continuous=continuous)
+    for p, a in zip(prompts, arrivals):
+        srv.submit(p, SERVE_NEW_TOKENS, arrival_s=a, record_logits=True)
+    torch.cuda.synchronize()
+    mem = {"mem_before_bytes": torch.cuda.memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    if count:
+        _build.reset_launches()
+    t0 = time.perf_counter()
+    done = sorted(srv.run(), key=lambda r: r.rid)
+    if zs is not None:
+        zs.drain_pending()
+    torch.cuda.synchronize()
+    mem["wall_s"] = time.perf_counter() - t0
+    mem["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    return srv, done, dict(_build.LAUNCHES) if count else None, mem
+
+
+def serving_numbers(name, srv, done, run):
+    """Print and return a serving path's end-to-end numbers (with the
+    run's wall time and memory from `serve_requests`) and its per-request
+    table."""
+    m = srv.metrics()
+    keys = ("ttft_p50_s", "ttft_p95_s", "tpot_p50_s", "tpot_p95_s",
+            "queue_delay_p50_s", "queue_delay_p95_s", "throughput_tok_s",
+            "mean_ttft_s", "mean_tpot_s", "cache_hit_rate",
+            "overlap_blocking_s", "overlap_fetch_wait_s",
+            "overlap_h2d_bytes", "overlap_splice_ops")
+    out = {k: m[k] for k in keys if k in m}
+    out.update(run)
+    pool = getattr(srv, "pool", None)
+    out["kv_pool_bytes"] = pool.pool_bytes() if pool is not None else None
+    out["kv_used_bytes_after"] = pool.used_bytes() if pool is not None \
+        else None
+    if srv.zip is not None:
+        stats = srv.zip.stats
+        out["decode_steps"] = steps = len(stats) // max(
+            1, len(srv.zip._moe_layers))
+        out["blocked_ms_per_step"] = sum(s["blocked_s"] for s in stats) \
+            / steps * 1e3
+    table = srv.request_summary()
+    out["requests"] = {str(rid): {k: v for k, v in d.items()
+                                  if k != "error"} for rid, d in
+                       table.items()}
+    print(f"{name}: {json.dumps({k: v for k, v in out.items() if k != 'requests'})}",
+          flush=True)
+    for rid, d in sorted(table.items()):
+        r = next(r for r in done if r.rid == rid)
+        cells = [f"S={len(r.prompt)}", f"toks={d['n_tokens']}"]
+        for key, label in (("ttft_s", "ttft"), ("tpot_s", "tpot"),
+                           ("queue_delay_s", "qdelay")):
+            if d[key] is not None:
+                cells.append(f"{label}={d[key] * 1e3:.3f}ms")
+        if "cache_hit_rate" in d:
+            cells.append(f"hit_rate={d['cache_hit_rate']:.3f} "
+                         f"({d['cache_hits']}/{d['cache_accesses']})")
+        print(f"{name}: request[{rid}] " + " ".join(cells), flush=True)
+    return out
+
+
+def served_routes(zs):
+    """Per request: per MoE layer, the expert set routed at each of its
+    positions, from the server's per-step stats (rows mapped by owner)."""
+    out = {}
+    for st in zs.stats:
+        for b, rid in enumerate(st["owners"]):
+            out.setdefault(rid, {}).setdefault(st["layer"], []).append(
+                set(int(e) for e in st["routes"][b]))
+    return out
+
+
+def check_requests_resident(torch, np, dev, cfg, params, done, routes):
+    """Hold each served request against the resident model fed its prompt
+    and outputs (``prefill`` then ``decode_step``, teacher forcing).  A
+    position whose routed experts differ in the two models (a router
+    near-tie flipped by bf16 noise), or whose (token, slot) the resident
+    prefill drops past its group capacity, takes another FFN: that
+    request's logits are compared only before it, and it is reported."""
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.moe import _positions, group_capacity
+    from repro_torch.serving.kv_cache import grow_cache
+    moe_layers = cfg_moe_layers(cfg)
+    worst, compared, total, flips = 0.0, 0, 0, []
+    for r in done:
+        S, N = len(r.prompt), len(r.output)
+        total += N
+        ids = []
+        prompt = torch.as_tensor(r.prompt, dtype=torch.long,
+                                 device=dev)[None]
+        lg, caches = prefill(params, cfg, prompt, router_ids=ids)
+        resident = {l: [set(int(e) for e in ti[0, s].tolist())
+                        for s in range(S)] for l, ti in zip(moe_layers, ids)}
+        cap = group_capacity(S, cfg)
+        first_bad = S + N
+        for l, ti in zip(moe_layers, ids):
+            kept = (_positions(ti, cfg.n_experts) < cap)[0].all(-1)
+            if not bool(kept.all()):
+                s = int((~kept).nonzero()[0, 0])
+                first_bad = min(first_bad, s)
+                flips.append((r.rid, s, l, "dropped"))
+        caches = grow_cache(cfg, caches, 1, S + N)
+        logits = [lg[0, -1]]
+        for t in range(N - 1):
+            step_ids = []
+            tok = torch.tensor([[r.output[t]]], dtype=torch.long, device=dev)
+            lg, caches = decode_step(params, cfg, tok, caches, S + t,
+                                     router_ids=step_ids)
+            logits.append(lg[0, -1])
+            for l, ti in zip(moe_layers, step_ids):
+                resident[l].append(set(int(e) for e in ti[0, 0].tolist()))
+        for l in moe_layers:
+            mine = routes[r.rid][l]
+            check(len(mine) == S + N - 1,
+                  f"request {r.rid}: {len(mine)} served positions in layer "
+                  f"{l}, expected {S + N - 1}")
+            for s, (a, b) in enumerate(zip(mine, resident[l])):
+                if a != b:
+                    if s < first_bad:
+                        flips.append((r.rid, s, l, "flip"))
+                    first_bad = min(first_bad, s)
+                    break
+        for t in range(N):
+            want = logits[t].float()
+            got = torch.from_numpy(r.logits[t]).to(dev)
+            check(bool(torch.isfinite(got).all()),
+                  f"request {r.rid}: non-finite logits at output {t}")
+            if S - 1 + t >= first_bad:
+                break
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            worst = max(worst, err / scale)
+            compared += 1
+            check(err <= LOGIT_REL_TOL * scale,
+                  f"continuous request {r.rid} output {t}: served vs "
+                  f"resident logits differ by {err} (> {LOGIT_REL_TOL} x "
+                  f"{scale}) on an identically routed prefix")
+    check(compared >= total // 2,
+          f"continuous: only {compared} of {total} outputs routed "
+          f"identically to the resident model")
+    print(f"continuous: served vs resident logits on identically routed "
+          f"prefixes ({compared}/{total} outputs; flips and drops at "
+          f"(rid, position, layer) {flips}): max |diff| / max |logit| = "
+          f"{worst:.4g} (tolerance {LOGIT_REL_TOL})", flush=True)
+    return worst, compared, flips
+
+
+def batch_variance_probe(torch, dev, cfg, params):
+    """Which of a decode step's products give a row other bits in a batch
+    of SERVE_CONCURRENCY than alone, on this card at the served widths:
+    row 0 of each batched product against the same row computed alone."""
+    lp = params["layers"][0]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    B, d = SERVE_CONCURRENCY, cfg.d_model
+    x = torch.randn((B, 1, d), generator=g, device=dev).to(torch.bfloat16)
+    probes = {
+        "router f32 (x.float() @ router)":
+            lambda v: v.float() @ lp["ffn"]["router"],
+        "q projection bf16": lambda v: v @ lp["attn"]["wq"],
+        "shared-expert gate bf16": lambda v: v @ lp["ffn"]["shared"]["w_gate"],
+        "lm head bf16": lambda v: v @ params["lm_head"]["w"],
+    }
+    out = {}
+    for name, fn in probes.items():
+        out[name] = bool(torch.equal(fn(x)[:1], fn(x[:1])))
+    # attention: row 0 at position 5 over T = 16 in a batch padded to 32
+    from repro_torch.models.attention import _gqa_scores_to_out
+    shape = (B, 32, cfg.n_kv_heads, cfg.head_dim)
+    q = torch.randn((B, 1, cfg.n_heads, cfg.head_dim), generator=g,
+                    device=dev).to(torch.bfloat16)
+    k = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.tensor([5, 31, 20, 9], device=dev)[:B]
+    mask = (torch.arange(32, device=dev)[None] <= pos[:, None])[:, None]
+    full = _gqa_scores_to_out(q, k, v, mask)
+    alone = _gqa_scores_to_out(q[:1], k[:1, :16], v[:1, :16],
+                               mask[:1, :, :16])
+    out["attention over a padded T"] = bool(torch.equal(
+        full[:1].view(torch.int16), alone.view(torch.int16)))
+    print(f"batch-invariance on the card (row alone == row in a batch of "
+          f"{B}): {out}", flush=True)
+    return out
+
+
+def serving_phase(torch, np, dev, cfg, params, store_dir):
+    """Continuous batching, two requests alone, the static baseline, the
+    resident server and the CLI.  Returns the continuous path's launches
+    and every path's numbers."""
+    from repro_torch.serving.zipserve import ZipServer
+    rng = np.random.default_rng(SEED)
+    lo, hi = SERVE_PROMPT_LENS
+    lens = rng.integers(lo, hi + 1, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
+    max_len = int(max(lens)) + SERVE_NEW_TOKENS
+    print(f"serving: {SERVE_REQUESTS} requests, prompt lengths "
+          f"{lens.tolist()}, {SERVE_NEW_TOKENS} greedy tokens each, "
+          f"concurrency {SERVE_CONCURRENCY}, arrivals {list(SERVE_ARRIVALS)} "
+          f"s, pools {POOLS_SMALL}", flush=True)
+    numbers = {"prompt_lens": lens.tolist()}
+
+    def zip_server():
+        gc.collect()
+        return ZipServer(params, cfg, store_dir, L=6, prefetch=True,
+                         device=dev, pool_sizes=POOLS_SMALL,
+                         device_cache=True, ffn_impl="ragged")
+
+    # -- continuous batching over the ragged device-slab path --------------
+    zs = zip_server()
+    try:
+        srv, cont, launches, run = serve_requests(
+            torch, cfg, prompts, SERVE_ARRIVALS, max_len, zs=zs, count=True)
+        routes = served_routes(zs)
+    finally:
+        zs.close()
+    numbers["continuous"] = serving_numbers("continuous", srv, cont, run)
+    print(f"continuous: launches {launches}", flush=True)
+    for r in cont:
+        check(r.error is None and len(r.output) == SERVE_NEW_TOKENS
+              and len(r.logits) == SERVE_NEW_TOKENS,
+              f"continuous request {r.rid}: {len(r.output)} tokens, error "
+              f"{r.error}")
+    check(srv.pool.used_bytes() == 0,
+          f"continuous: {srv.pool.used_bytes()} KV bytes still held")
+    worst, compared, flips = check_requests_resident(
+        torch, np, dev, cfg, params, cont, routes)
+    numbers["continuous"].update(logit_rel_err=worst, outputs_compared=compared,
+                                 flips=flips)
+
+    # -- two requests alone: continuous == solo? ---------------------------
+    solo_out = {}
+    for i in SERVE_SOLO:
+        zs = zip_server()
+        try:
+            _, solo, _, _ = serve_requests(torch, cfg, [prompts[i]], [0.0],
+                                           max_len, zs=zs)
+        finally:
+            zs.close()
+        a, b = solo[0], cont[i]
+        diffs = [float(np.abs(x - y).max()) for x, y in zip(a.logits,
+                                                            b.logits)]
+        same_bits = all(np.array_equal(x, y) for x, y in zip(a.logits,
+                                                             b.logits))
+        decided = 0
+        for t, (x, y) in enumerate(zip(a.logits, b.logits)):
+            top = np.sort(x)[::-1]
+            if a.output[t] != b.output[t]:
+                check(top[0] - top[1] <= 2 * diffs[t],
+                      f"continuous-solo request {b.rid}: token {t} differs "
+                      f"({a.output[t]} alone, {b.output[t]} batched) where "
+                      f"the logits decide it")
+                break
+            decided += int(top[0] - top[1] > 2 * diffs[t])
+        rel = max(diffs) / max(float(np.abs(x).max()) for x in a.logits)
+        solo_out[str(b.rid)] = {"bit_identical": same_bits,
+                                "max_abs_diff": max(diffs),
+                                "max_rel_diff": rel,
+                                "tokens_equal": a.output == b.output,
+                                "decided_equal": decided}
+        print(f"continuous-solo: request {b.rid} (S={len(b.prompt)}) alone: "
+              f"logits bit-identical to the batched run: {same_bits}; "
+              f"largest |diff| {max(diffs)} ({rel:.4g} of max |logit|); "
+              f"tokens equal {a.output == b.output}", flush=True)
+    numbers["continuous-solo"] = solo_out
+    numbers["batch_invariance"] = batch_variance_probe(torch, dev, cfg,
+                                                       params)
+
+    # -- the static-batch baseline over a fresh server ---------------------
+    zs = zip_server()
+    try:
+        srv, static, _, run = serve_requests(
+            torch, cfg, prompts, SERVE_ARRIVALS, max_len, zs=zs,
+            continuous=False)
+    finally:
+        zs.close()
+    numbers["static"] = serving_numbers("static", srv, static, run)
+    for r in static:
+        check(len(r.output) == SERVE_NEW_TOKENS,
+              f"static request {r.rid}: {len(r.output)} tokens")
+    numbers["static"]["tokens_equal_continuous"] = sum(
+        a.output == b.output for a, b in zip(static, cont))
+
+    # -- resident weights: prefill + decode --------------------------------
+    gc.collect()
+    srv, resident, _, run = serve_requests(
+        torch, cfg, prompts, SERVE_ARRIVALS, max_len, params=params,
+        continuous=False)
+    numbers["resident"] = serving_numbers("resident", srv, resident, run)
+    for r in resident:
+        check(len(r.output) == SERVE_NEW_TOKENS,
+              f"resident request {r.rid}: {len(r.output)} tokens")
+    numbers["resident"]["tokens_equal_continuous"] = sum(
+        a.output == b.output for a, b in zip(resident, cont))
+
+    # -- the port's CLI ----------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *CLI_ARGS],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    cli_s = time.perf_counter() - t0
+    lines = cli.stdout.splitlines()
+    for ln in lines[-12:]:
+        print(f"cli: {ln}", flush=True)
+    check(cli.returncode == 0,
+          f"the CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
+    for head in ("metrics:", "cache:"):
+        check(any(ln.startswith(head) for ln in lines),
+              f"the CLI printed no {head!r} line")
+    numbers["cli_s"] = cli_s
+    print(f"cli: python -m repro_torch.launch.serve {' '.join(CLI_ARGS)}: "
+          f"exit 0 in {cli_s:.1f} s", flush=True)
     return launches, numbers
 
 

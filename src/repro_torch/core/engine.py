@@ -509,6 +509,20 @@ class ZipMoEEngine:
         if close is not None:
             close()
 
+    def release(self):
+        """After :meth:`shutdown`: free the device slabs now (every SlotRef
+        into them turns stale) and drop the references back to the engine
+        that its caches' demotion hook and its recover hook hold, so the
+        engine and the payloads in its pools are freed by reference
+        counting, without waiting for the cycle collector.  Counters and
+        telemetry stay readable; the engine fetches nothing afterwards."""
+        for slab in self._slabs.values():
+            if slab is not None:
+                slab.retire()
+        for cache in self.caches.values():
+            cache.demote_payload = None
+        self.recover = None
+
     def __enter__(self):
         return self
 

@@ -1,3 +1,4 @@
-from repro_torch.models.model import decode_step, init_cache, init_params
+from repro_torch.models.model import (decode_step, forward, init_cache,
+                                      init_params, prefill)
 
-__all__ = ["decode_step", "init_cache", "init_params"]
+__all__ = ["decode_step", "forward", "init_cache", "init_params", "prefill"]

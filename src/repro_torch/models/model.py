@@ -1,5 +1,5 @@
-"""Model facade for decode: init / init_cache / decode_step (MoE and dense
-GQA decoders).
+"""Model facade: init / init_cache / forward / prefill / decode_step (MoE
+and dense GQA decoders).
 
 Parameters are a plain dict with a **per-layer list**, not the JAX
 package's scanned stack::
@@ -10,8 +10,9 @@ package's scanned stack::
 
 ``init_params`` draws them from a seeded ``torch.Generator`` (on the target
 device); ``repro_torch.convert.params_from_jax`` builds the same structure
-from the JAX package's parameter tree.  :func:`decode_step` is the fully
-resident model that the serving path is checked against.
+from the JAX package's parameter tree.  :func:`prefill` followed by
+:func:`decode_step` is the fully resident model that the serving paths are
+checked against.
 """
 from __future__ import annotations
 
@@ -83,6 +84,52 @@ def init_cache(cfg, batch: int, length: int, device=None) -> List[Dict]:
     dev = resolve_device(device)
     return [{"kv": attn_lib.init_kv_cache(cfg, batch, length, dev)}
             for _ in range(cfg.n_layers)]
+
+
+# ----------------------------------------------------------------------------
+# full-sequence passes
+# ----------------------------------------------------------------------------
+def forward(p, cfg, tokens, *, mode="full", moe_impl="einsum",
+            router_ids=None):
+    """Full-sequence causal pass.  tokens: [B, S] int.  Returns (logits
+    [B, S, V], caches, aux): with ``mode="prefill"`` the per-layer list of
+    ``{"kv": {"k", "v"}}`` caches of length S, else None; aux is the summed
+    load-balance loss of the MoE layers.  When `router_ids` is a list, the
+    router's [B, S, k] expert ids of each MoE layer are appended to it."""
+    assert mode in ("full", "prefill"), mode
+    x = p["embed"]["tok"][tokens]
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
+    caches = [] if mode == "prefill" else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in p["layers"]:
+        h = apply_norm(lp["norm1"], x, cfg)
+        y, kv = attn_lib.gqa_forward(lp["attn"], h, cfg, positions,
+                                     return_cache=True)
+        if caches is not None:
+            caches.append({"kv": kv})
+        x = x + y
+        if "ffn" in lp:
+            h2 = apply_norm(lp["norm2"], x, cfg)
+            if "router" in lp["ffn"]:
+                y2, (top_i, probs) = moe_lib.apply_moe(lp["ffn"], h2, cfg,
+                                                       impl=moe_impl)
+                aux = aux + moe_lib.load_balance_loss(probs, top_i, cfg)
+                if router_ids is not None:
+                    router_ids.append(top_i)
+            else:
+                y2 = apply_mlp(lp["ffn"], h2, cfg)
+            x = x + y2
+    x = apply_norm(p["final_norm"], x, cfg)
+    return x @ p["lm_head"]["w"], caches, aux
+
+
+def prefill(p, cfg, tokens, *, moe_impl="einsum", router_ids=None):
+    """tokens: [B, S] -> (logits [B, S, V], per-layer caches of length S)."""
+    logits, caches, _ = forward(p, cfg, tokens, mode="prefill",
+                                moe_impl=moe_impl, router_ids=router_ids)
+    return logits, caches
 
 
 # ----------------------------------------------------------------------------

@@ -1,15 +1,20 @@
-"""Mixture-of-Experts layer for decode: router + routed and shared experts.
+"""Mixture-of-Experts layer: router + routed and shared experts.
 
 Routing variants:
 * ``router_norm_topk=True`` (Qwen-MoE): softmax → top-k → renormalise.
 * default (DeepSeek-V2): softmax over all experts, keep top-k probs as-is.
 
-The routed expert stacks are ``[E, d, f]`` tensors.  At decode every
-dispatch group holds one token and the JAX package's per-group capacity is
-at least 8 (its ``group_capacity``), so no token is ever dropped and the
-routed mixture is exactly ``Σ_k gate_k · expert_k(x)``; :func:`apply_moe_decode`
-computes that directly, rounding each gate to the activation dtype before
-the weighted sum as the JAX combine einsum does.
+The routed expert stacks are ``[E, d, f]`` tensors.  Two entry points:
+
+* :func:`apply_moe` — full sequences (prefill): GShard-style dense
+  dispatch/combine einsums with a per-group expert capacity
+  (:func:`group_capacity`).  A (token, slot) pair whose queue position at
+  its expert reaches the capacity is **dropped**, exactly as the JAX
+  package drops it; queue positions are slot-major (:func:`_positions`).
+* :func:`apply_moe_decode` — one token per dispatch group, where the
+  capacity (at least 8) never binds: the routed mixture is exactly
+  ``Σ_k gate_k · expert_k(x)``, computed directly, each gate rounded to the
+  activation dtype before the weighted sum as the JAX combine einsum does.
 """
 from __future__ import annotations
 
@@ -33,6 +38,13 @@ def init_moe(gen, cfg, device):
         p["shared"] = init_mlp(gen, cfg, device,
                                d_ff=cfg.d_expert * cfg.n_shared_experts)
     return p
+
+
+def group_capacity(s: int, cfg) -> int:
+    """Per-group expert capacity, rounded up to 8 rows."""
+    cap = -(-s * cfg.top_k * int(cfg.capacity_factor * 100)
+            // (100 * cfg.n_experts))
+    return max(8, (cap + 7) // 8 * 8)
 
 
 def route(router_w, x, cfg):
@@ -65,3 +77,80 @@ def apply_moe_decode(p, x, cfg):
     if "shared" in p:
         y = y + apply_mlp(p["shared"], x, cfg)
     return y, top_i
+
+
+def _positions(top_i, n_experts: int):
+    """Queue position of every routing slot at its expert, within its
+    group.  top_i: [G, s, k] -> pos [G, s, k] (int64).  Slot-major: every
+    slot-0 choice of the group queues before any slot-1 choice (the Switch
+    convention the JAX package follows)."""
+    G, s, k = top_i.shape
+    oh = torch.nn.functional.one_hot(top_i, n_experts)        # [G,s,k,E]
+    ohf = oh.transpose(1, 2).reshape(G, k * s, n_experts)     # [G,ks,E]
+    pos_f = ohf.cumsum(1) - ohf
+    pos_f = pos_f.reshape(G, k, s, n_experts).transpose(1, 2)  # [G,s,k,E]
+    return (pos_f * oh).sum(-1)
+
+
+def _moe_ffn(p, xin):
+    """xin: [E, G, C, d] -> [E, G, C, d] through each expert's MLP."""
+    if "w_gate" in p:
+        h = silu(torch.einsum("egcd,edf->egcf", xin, p["w_gate"])) * \
+            torch.einsum("egcd,edf->egcf", xin, p["w_up"])
+    else:
+        h = torch.nn.functional.gelu(
+            torch.einsum("egcd,edf->egcf", xin, p["w_up"]),
+            approximate="tanh")
+    return torch.einsum("egcf,efd->egcd", h, p["w_down"])
+
+
+def _apply_einsum(p, xg, cfg, capacity):
+    """xg: [G, s, d] grouped tokens -> (y [G, s, d], (top_i, probs))."""
+    E, C = p["w_up"].shape[0], capacity
+    top_p, top_i, probs = route(p["router"], xg, cfg)         # [G,s,k]
+    pos = _positions(top_i, E)
+    keep = (pos < C).float()                                  # [G,s,k]
+    # collapse the k slots (a token's expert ids are distinct)
+    oh = torch.nn.functional.one_hot(top_i, E).float()        # [G,s,k,E]
+    keep_e = torch.einsum("gske,gsk->gse", oh, keep)          # {0, 1}
+    pos_e = torch.einsum("gske,gsk->gse", oh, pos.float() * keep)
+    gate_e = torch.einsum("gske,gsk->gse", oh, top_p * keep)
+    pos_oh = torch.nn.functional.one_hot(pos_e.long(), C).float()  # [G,s,E,C]
+    disp = (keep_e[..., None] * pos_oh).to(xg.dtype)
+    comb = (gate_e[..., None] * pos_oh).to(xg.dtype)
+    xin = torch.einsum("gsec,gsd->egcd", disp, xg)            # [E,G,C,d]
+    eout = _moe_ffn(p, xin)
+    y = torch.einsum("gsec,egcd->gsd", comb, eout)
+    return y, (top_i, probs)
+
+
+def apply_moe(p, x, cfg, *, impl="einsum", capacity=None):
+    """x: [B, S, d] -> (y [B, S, d], (top_i, probs)).
+
+    Dispatch groups are the batch rows (G = B, s = S), or chunks of
+    ``cfg.moe_group_size`` tokens when that divides S.  Only the dense
+    ``"einsum"`` dispatch is ported; the scatter dispatch raises."""
+    if impl != "einsum":
+        raise NotImplementedError(f"apply_moe impl={impl!r} is not ported "
+                                  f"(only 'einsum')")
+    B, S, d = x.shape
+    g = cfg.moe_group_size
+    if g and S > g and S % g == 0:
+        xg, s_eff = x.reshape(B * (S // g), g, d), g
+    else:
+        xg, s_eff = x, S
+    y, aux = _apply_einsum(p, xg, cfg, capacity or group_capacity(s_eff, cfg))
+    y = y.reshape(B, S, d)
+    if "shared" in p:
+        y = y + apply_mlp(p["shared"], x, cfg)
+    return y, aux
+
+
+def load_balance_loss(probs, top_i, cfg):
+    """Switch aux loss: E · Σ_e f_e · P_e (f = routed fraction, P = mean
+    router probability)."""
+    E = cfg.n_experts
+    frac = torch.nn.functional.one_hot(top_i, E).float().reshape(
+        -1, E).mean(0)
+    mean_p = probs.reshape(-1, probs.shape[-1]).mean(0)
+    return E * (frac * mean_p).sum()

@@ -64,8 +64,14 @@ decompression + bit-splice recovery) before the FFN runs.
   freed entirely).  ``plan_summary()`` reports per-layer plans, replan
   events, and byte occupancy.
 
+* **Continuous batching** (``decode_rows``) — every batch row is a request
+  at its own position (KV views from ``serving/kv_cache.KVPagePool``); each
+  MoE layer submits ONE Algorithm-1 block list over the union of all rows'
+  demand and predicted experts, and per-request hits are attributed by
+  pure residency queries (``request_summary()``).
+
 Not ported yet: the multi-device peer tier (``mesh_devices`` raises
-``NotImplementedError``) and continuous batching (``decode_rows``).
+``NotImplementedError``).
 
 ``ZipServer.decode_step`` is validated against the fully-resident
 ``models.decode_step`` and against the JAX package's ``ZipServer``.
@@ -235,9 +241,30 @@ class ZipServer:
             "gemm_compiles": 0,      # distinct expert-GEMM shape keys seen
         }
         self._gemm_shapes: set = set()
+        # per-request cache accounting of decode_rows (request_summary)
+        self.req_stats: Dict[int, Dict[str, int]] = {}
+        self._closed = False
 
     def close(self):
+        """Stop the engine's workers and release the server's device
+        memory now, not when the cycle collector runs: the expert slabs
+        are retired (every SlotRef into them turns stale) and the
+        references from the engine's caches and recover hook back to the
+        engine are dropped, so the engine, its pools and their device
+        tensors go with the last outside reference to the server.
+        Telemetry (``overlap_summary``, ``cache_summary``, ...) stays
+        readable; a closed server serves no more steps."""
+        if self._closed:
+            return
+        self._closed = True
         self.engine.shutdown()
+        self.engine.release()
+        self._pending.clear()
+        self._gemm_runners.clear()
+
+    def _check_open(self):
+        if self._closed:
+            raise RuntimeError("ZipServer is closed")
 
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, length: int):
@@ -893,8 +920,27 @@ class ZipServer:
         return self._combine(x, eout.reshape(-1, x.shape[-1]),
                              gates.reshape(-1), rows_of)
 
-    def _zip_moe_ffn(self, lp, x, layer_idx: int):
-        """x: [B, 1, d].  Router -> engine fetch -> expert FFN."""
+    def _note_request_access(self, layer_idx: int, ti: np.ndarray, owners):
+        """Per-request hit attribution under the multi-tenant union: row
+        ``b``'s owner is charged one access per routed expert, a hit when
+        that expert was resident at step start.  Pure residency queries on
+        the router's host copy `ti` [B, k] — the shared record_access
+        tallies (one per unique expert per step) are untouched."""
+        states = self.engine.residency_states(
+            layer_idx, {int(e) for e in ti.reshape(-1)})
+        for b, rid in enumerate(owners):
+            st = self.req_stats.setdefault(
+                rid, {"accesses": 0, "hits": 0, "steps": 0})
+            for e in {int(v) for v in ti[b]}:
+                st["accesses"] += 1
+                st["hits"] += int(states[e].name != "M")
+
+    def _zip_moe_ffn(self, lp, x, layer_idx: int, owners=None):
+        """x: [B, 1, d].  Router -> engine fetch -> expert FFN.
+
+        ``owners`` (continuous batching) maps batch rows to request ids:
+        the selection UNION across rows feeds one Algorithm-1 submission,
+        while per-request accounting runs on pure residency queries."""
         cfg = self.cfg
         ffn = lp["ffn"]
         top_p, top_i, _ = route(ffn["router"], x, cfg)       # [B,1,k]
@@ -904,6 +950,9 @@ class ZipServer:
         ids = sorted({int(e) for e in ti.reshape(-1)})
         B = x.shape[0]
         self._last_ids[layer_idx] = ids
+        if owners is not None:
+            self._note_request_access(layer_idx, ti.reshape(B, cfg.top_k),
+                                      owners)
         # expert-weight transfer attributed to this layer-step (0 on a full
         # cache hit, the whole re-upload on a host-mode hit)
         h2d0 = self.engine.h2d_bytes
@@ -955,6 +1004,7 @@ class ZipServer:
                            "blocked_s": blocked_s, "io_bytes": io_bytes,
                            "n_experts": len(ids),
                            "routes": ti.reshape(B, cfg.top_k),
+                           "owners": None if owners is None else list(owners),
                            "h2d_bytes": self.engine.h2d_bytes - h2d0,
                            "w_copy_bytes": self.engine.w_copy_bytes - wcopy0,
                            "splice_s": self.engine.splice_s - splice0})
@@ -963,6 +1013,7 @@ class ZipServer:
     def decode_step(self, tokens, caches: list, pos: int
                     ) -> Tuple[torch.Tensor, list]:  # hot-path
         """tokens: [B, 1] -> (logits [B,1,V], caches updated in place)."""
+        self._check_open()
         cfg = self.cfg
         p = self.globals
         tokens = torch.as_tensor(tokens, device=self.device).long()
@@ -984,6 +1035,61 @@ class ZipServer:
             self._tune_depth()
         self.engine.note_step()   # cache-window and live-planner step clocks
         return x @ p["lm_head"]["w"], caches
+
+    def decode_rows(self, tokens, caches: list, positions, owners=None
+                    ) -> Tuple[torch.Tensor, list]:  # hot-path
+        """Multi-request decode step (continuous batching): each batch row
+        is an independent request at its own sequence position.
+
+        tokens: [B, 1]; caches: per-layer views from ``KVPagePool.gather``
+        (the new K/V is written into them in place); positions: int [B]
+        on the host (row b's new-token index); owners: optional per-row
+        request ids for per-request cache accounting.  Rows share ONE
+        forward pass — every MoE layer submits a single Algorithm-1 block
+        list over the union of all rows' demand and predicted experts, so
+        the cache pools, device slabs and live planner serve the whole
+        active set as shared multi-tenant resources.  Returns (logits
+        [B, 1, V], caches)."""
+        self._check_open()
+        cfg = self.cfg
+        p = self.globals
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        positions = torch.as_tensor(np.asarray(positions, np.int64),
+                                    device=self.device)
+        x = p["embed"]["tok"][tokens]
+        # loop-ok: per-LAYER structure (hot-path bans per-EXPERT loops;
+        # expert work inside goes through the grouped-GEMM kernels)
+        for idx, (lp, cache) in enumerate(zip(self.layers, caches)):
+            h = apply_norm(lp["norm1"], x, cfg)
+            y, _ = attn_lib.gqa_decode_rows(lp["attn"], h, cfg, cache["kv"],
+                                            positions)
+            x = x + y
+            if "ffn" in lp:
+                h2 = apply_norm(lp["norm2"], x, cfg)
+                if "router" in lp["ffn"]:
+                    x = x + self._zip_moe_ffn(lp, h2, idx, owners=owners)
+                else:
+                    x = x + apply_mlp(lp["ffn"], h2, cfg)
+        x = apply_norm(p["final_norm"], x, cfg)
+        for rid in owners or ():
+            self.req_stats.setdefault(
+                rid, {"accesses": 0, "hits": 0, "steps": 0})["steps"] += 1
+        if self._auto_depth:
+            self._tune_depth()
+        self.engine.note_step()   # cache-window and live-planner step clocks
+        return x @ p["lm_head"]["w"], caches
+
+    def request_summary(self) -> Dict[int, Dict[str, float]]:
+        """Per-request cache accounting (continuous batching): expert
+        accesses, hits at step start, hit rate, and decode steps served —
+        the fairness complement to the shared-pool :meth:`cache_summary`."""
+        out = {}
+        for rid, st in sorted(self.req_stats.items()):
+            acc = st["accesses"]
+            out[rid] = {"accesses": acc, "hits": st["hits"],
+                        "hit_rate": st["hits"] / acc if acc else 0.0,
+                        "steps": st["steps"]}
+        return out
 
     def drain_pending(self) -> int:
         """Finish every in-flight prediction job and credit its stats (end

@@ -197,6 +197,41 @@ def test_zipserver_on_card_launches_kernels(cuda, tmp_path):
         zs.close()
 
 
+def test_continuous_batching_on_card_launches_kernels(cuda, tmp_path):
+    """Smoke-size continuous batching on the card (KV pages on the card,
+    ``decode_rows`` over device slabs): every request completes, the page
+    pool returns to 0 bytes, the ragged path's three kernels launch, and a
+    closed server's slabs are gone."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.store import build_store
+    from repro_torch.models import init_params
+    from repro_torch.serving.server import BatchServer
+    from repro_torch.serving.zipserve import ZipServer
+    cfg = get_smoke_config("qwen2-moe-a2.7b", n_layers=2)
+    params = init_params(cfg, seed=0, device=cuda)
+    build_store(params, cfg, str(tmp_path), device=cuda)
+    zs = ZipServer(params, cfg, str(tmp_path), L=2, device_cache=True,
+                   pool_sizes={"F": 2, "C": 2, "S": 2, "E": 2}, device=cuda)
+    try:
+        srv = BatchServer(None, cfg, max_batch=3, max_len=16, zip_server=zs,
+                          max_concurrency=3, page_size=4)
+        rng = np.random.default_rng(0)
+        for n in (3, 6, 4, 5):
+            srv.submit(rng.integers(0, cfg.vocab_size, n), 4)
+        _build.reset_launches()
+        done = srv.run()
+        torch.cuda.synchronize()
+        assert [len(r.output) for r in done] and all(
+            len(r.output) == 4 and r.error is None for r in done)
+        assert srv.pool.used_bytes() == 0
+        assert srv.pool._paged[0]["kv"]["k"].is_cuda
+        assert all(_build.LAUNCHES[k] > 0 for k in
+                   ("splice", "splice_admit", "slab_gemm")), _build.LAUNCHES
+    finally:
+        zs.close()
+    assert all(not s.bufs for s in zs.engine._slabs.values() if s)
+
+
 # (E, C, d, f): odd expert counts, 8/16/136-row groups, served widths;
 # K under one slice and off the slice grid, E = 1 at full width (zip_gemm's
 # launch, slices spread over CTAs), 16 experts x C = 16 (the profiler's

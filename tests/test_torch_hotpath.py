@@ -72,6 +72,7 @@ def test_hot_path_functions_found():
     names = {f"{p.relative_to(PKG)}:{n}" for p in _sources()
              for n, _ in hot_functions(p.read_text())}
     for want in ("serving/zipserve.py:ZipServer.decode_step",
+                 "serving/zipserve.py:ZipServer.decode_rows",
                  "serving/zipserve.py:ZipServer._ffn_ragged",
                  "core/engine.py:ZipMoEEngine._recover_device",
                  "core/slab.py:DeviceSlabCache.gather",
@@ -121,3 +122,43 @@ def test_seeded_host_sync_is_flagged(kind):
     assert host_syncs(_snippet(BAD_SNIPPETS[kind],
                                waiver="# host-sync-ok: test")) == []
     assert host_syncs(_snippet(BAD_SNIPPETS[kind], flag="")) == []
+
+
+def test_decode_rows_adds_no_host_sync(tmp_path, monkeypatch):
+    """At run time, ``decode_rows`` copies to the host exactly what
+    ``decode_step`` copies on the same server (the router's choice, once
+    per MoE layer): the per-request accounting reuses that copy."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.store import build_store
+    from repro_torch.models import init_params
+    from repro_torch.serving.zipserve import ZipServer
+
+    cfg = get_smoke_config("qwen2-moe-a2.7b", n_layers=2)
+    params = init_params(cfg, seed=0, device="cpu")
+    build_store(params, cfg, str(tmp_path), device="cpu")
+    zs = ZipServer(params, cfg, str(tmp_path), L=2, device_cache=True,
+                   prefetch=False, device="cpu")
+    calls = []
+    for attr in SYNC_ATTRS[:-1]:              # .synchronize is no method
+        orig = getattr(torch.Tensor, attr)
+
+        def counted(self, *a, _orig=orig, _attr=attr, **kw):
+            calls.append(_attr)
+            return _orig(self, *a, **kw)
+
+        monkeypatch.setattr(torch.Tensor, attr, counted)
+    try:
+        tok = torch.zeros(2, 1, dtype=torch.long)
+        zs.decode_step(tok, zs.init_cache(2, 4), 0)
+        step_calls = sorted(calls)
+        calls.clear()
+        zs.decode_rows(tok, zs.init_cache(2, 4), np.asarray([0, 2]),
+                       owners=[1, 2])
+        assert sorted(calls) == step_calls, (calls, step_calls)
+        assert step_calls.count("cpu") == 2 * len(zs._moe_layers)
+        assert zs.request_summary()[1]["steps"] == 1
+    finally:
+        zs.close()

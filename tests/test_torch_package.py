@@ -88,6 +88,13 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
         ZipServer(params, cfg, str(tmp_path / "s"))
     zs = ZipServer(params, cfg, str(tmp_path / "s"), device="cpu")
     zs.close()
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.serving.kv_cache import KVPagePool
+    with pytest.raises(RuntimeError):
+        KVPagePool(cfg)
+    KVPagePool(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_main(["--mode", "resident", "--requests", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 

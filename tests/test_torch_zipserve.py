@@ -183,3 +183,46 @@ def test_stale_slotref_trips_ragged_weight_source(setup):
             zs._slab_sources("w_up", {0: {"w_up": refs["w_up"]}}, [0])
     finally:
         zs.close()
+
+
+@pytest.mark.parametrize("kw", [dict(device_cache=True),
+                                dict(device_recovery=True,
+                                     ffn_impl="grouped")],
+                         ids=["device-cache", "device-recovery"])
+def test_close_releases_slabs_and_engine(setup, kw):
+    """``close()`` frees the device slabs at once (every SlotRef into them
+    turns stale) and breaks the engine's reference cycles, so the engine
+    goes with the last outside reference to the server, without the cycle
+    collector; telemetry stays readable and a closed server refuses to
+    serve."""
+    import gc
+    import weakref
+    _, _, cfg, params, d = setup
+    zs = ZipServer(params, cfg, d, L=2, pool_sizes=POOLS, prefetch=True,
+                   device="cpu", **kw)
+    _decode_port(zs, cfg, steps=2)
+    slabs = [s for s in zs.engine._slabs.values() if s is not None]
+    assert bool(slabs) == bool(kw.get("device_cache"))
+    bufs = [weakref.ref(b) for s in slabs for b in s.bufs.values()]
+    refs = [r for s in slabs for e in s.slot_of for r in s.refs(e).values()]
+    assert not kw.get("device_cache") or (bufs and refs)
+    engine = weakref.ref(zs.engine)
+    gc.collect()
+    gc.disable()
+    try:
+        zs.close()
+        assert all(b() is None for b in bufs)          # slab memory freed
+        assert not any(r.valid for r in refs)
+        assert zs.overlap_summary()["h2d_bytes"] > 0
+        assert zs.cache_summary()["accesses"] > 0
+        with pytest.raises(RuntimeError, match="closed"):
+            zs.decode_step(torch.zeros(B, 1, dtype=torch.long),
+                           zs.init_cache(B, 4), 0)
+        with pytest.raises(RuntimeError, match="closed"):
+            zs.decode_rows(torch.zeros(B, 1, dtype=torch.long),
+                           zs.init_cache(B, 4), np.zeros(B, np.int64))
+        zs.close()                                     # idempotent
+        del zs, refs, slabs
+        assert engine() is None, gc.get_referrers(engine())
+    finally:
+        gc.enable()
