@@ -92,7 +92,32 @@ failure exits non-zero:
    bit for bit equal to the store after every re-plan, and layer 1's slab
    must exist during the trace, be freed at its end, and every SlotRef
    into it taken before a re-plan must be stale.
-5. One JSON line with each kernel's launches on its path, error, times and
+5. The MLA MoE family: deepseekv2-lite with every width as published
+   (16 MLA heads, kv_lora 512, rope 64, nope 128, v 128; 64 experts
+   top-6, 2 shared; a dense first layer of d_ff 10944), depth cut to 3
+   layers (one dense, two MoE), seeded random weights.  Its own store
+   under ``build/``, every tensor loaded back bit-exactly; then
+
+   * ``mla-ragged``: ``ZipServer(device_cache=True, ffn_impl="ragged")``,
+     the ragged path's pools and 8 greedy tokens for a batch of 4 from an
+     empty cache, held against the resident model (absorbed MLA decode)
+     under teacher forcing;
+   * ``mla-continuous``: the serving phase's 8 requests through
+     ``BatchServer`` over ``decode_rows``, each held against the resident
+     model fed its prompt one decode step per token (as the server reads
+     it; the comparison against ``prefill`` is reported too); the KV page
+     pool over the latent returns to 0 bytes and its page holds exactly
+     ``(kv_lora + rope) x 2 B`` per token and layer;
+   * MLA decode with ``absorb=True`` against ``absorb=False`` on one layer
+     at the full attention widths of deepseekv2-lite and deepseek-v2-236b
+     (q-LoRA), and the batch-invariance probe of the absorbed products;
+   * ``mla-resident``: the same requests through the resident
+     ``BatchServer`` (MLA ``prefill`` + ``decode_step``), and the CLI once
+     with ``--arch deepseekv2-lite`` at its own smoke size.
+
+   Both paths must launch the splice, the splice-admit and the ragged
+   GEMM.
+6. One JSON line with each kernel's launches on its path, error, times and
    bound; then the result line.
 """
 from __future__ import annotations
@@ -154,7 +179,20 @@ PATH_KERNELS = {
     "planned": ("slab_gemm",),
     "migration": ("splice_admit",),
     "continuous": ("splice", "splice_admit", "slab_gemm"),
+    "mla-ragged": ("splice", "splice_admit", "slab_gemm"),
+    "mla-continuous": ("splice", "splice_admit", "slab_gemm"),
 }
+# phase 5: deepseekv2-lite, every width as published, depth 27 -> 3 (one
+# dense layer, two MoE layers, so the cross-layer prefetch stays real)
+MLA_ARCH = "deepseekv2-lite"
+MLA_LAYERS = 3
+# absorbed vs unabsorbed MLA decode: both sum in f32 in another order, then
+# round the per-head output to bf16 once and multiply by wo in bf16; one
+# bf16 ulp of the head output (2^-8 relative) moves y by less than that,
+# so allow 2^-7 of the largest |y|
+MLA_ABSORB_REL_TOL = 2.0 ** -7
+MLA_CHECK_POSITIONS = (5, 63, 20, 40)       # B = 4 rows' positions
+MLA_CHECK_T = 64
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12     # dense bf16 tensor-core peak
 # ragged GEMM vs its f32 plain version: both sum in f32 but in another
@@ -799,10 +837,33 @@ def warm_hit_run(torch, zs, cfg, prompt, steps: int = 4):
             "stream_ms": statistics.mean(dev_ms)}
 
 
+def check_lossless(torch, store, params, cfg, dev):
+    """Every tensor of every store group (a MoE layer's experts, a dense
+    layer's FFN as group (l, 0)) loads back bit-exactly."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.core import bitfield
+    from repro_torch.core.store import iter_expert_groups
+    want = {(l, e): t for l, e, t in iter_expert_groups(params, cfg)}
+    keys = sorted(store.groups)
+    check(keys == sorted(want), f"store groups {len(keys)} != the model's "
+          f"{len(want)}")
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        loaded = pool.map(lambda key: (key, store.load_group(key)), keys)
+        n_t = 0
+        for key, group in loaded:
+            for name, bits in group.items():
+                got = bitfield.from_bits(bits).to(dev)
+                check(torch.equal(got.view(torch.int16),
+                                  want[key][name].view(torch.int16)),
+                      f"store tensor {key + (name,)} not bit-exact")
+                n_t += 1
+    print(f"lossless: {n_t} expert tensors load bit-exactly", flush=True)
+    return n_t
+
+
 def main_path(torch, np, dev, cfg, store_dir):
     """Build one full-width store, then serve every path from it.  Returns
     each path's launch counts and numbers."""
-    from repro_torch.core import bitfield
     from repro_torch.core.codec import DEFAULT_CODEC
     from repro_torch.core.store import build_store
     from repro_torch.models import init_params
@@ -819,22 +880,8 @@ def main_path(torch, np, dev, cfg, store_dir):
           f"{len(store.groups)} groups, {os.cpu_count()} threads, "
           f"{build_s:.1f} s, ratio {store.ratio():.4f}", flush=True)
 
-    # losslessness: every expert tensor loads bit-exactly
-    from concurrent.futures import ThreadPoolExecutor
-    keys = sorted(store.groups)
-    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
-        loaded = pool.map(lambda key: (key, store.load_group(key)), keys)
-        n_t = 0
-        for (l, e), group in loaded:
-            ffn = params["layers"][l]["ffn"]
-            for name, bits in group.items():
-                got = bitfield.from_bits(bits).to(dev)
-                check(torch.equal(got.view(torch.int16),
-                                  ffn[name][e].view(torch.int16)),
-                      f"store tensor {(l, e, name)} not bit-exact")
-                n_t += 1
+    check_lossless(torch, store, params, cfg, dev)
     store.close()
-    print(f"lossless: {n_t} expert tensors load bit-exactly", flush=True)
 
     rng = np.random.default_rng(SEED)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, 1))
@@ -1105,56 +1152,87 @@ def served_routes(zs):
     return out
 
 
-def check_requests_resident(torch, np, dev, cfg, params, done, routes):
+def check_requests_resident(torch, np, dev, cfg, params, done, routes,
+                            what: str = "continuous",
+                            prefill_as_decode: bool = False,
+                            min_share: float = 0.5):
     """Hold each served request against the resident model fed its prompt
-    and outputs (``prefill`` then ``decode_step``, teacher forcing).  A
-    position whose routed experts differ in the two models (a router
-    near-tie flipped by bf16 noise), or whose (token, slot) the resident
-    prefill drops past its group capacity, takes another FFN: that
-    request's logits are compared only before it, and it is reported."""
-    from repro_torch.models import decode_step, prefill
+    and outputs (teacher forcing): ``prefill`` then ``decode_step``, or
+    with `prefill_as_decode` one ``decode_step`` per prompt token as the
+    server reads it.  A position whose routed experts differ in the two
+    models (a router near-tie flipped by bf16 noise), or whose (token,
+    slot) the resident prefill drops past its group capacity, takes
+    another FFN and is reported.  In the last layer that changes only the
+    position's own output (no later layer caches it), which is left out;
+    in an earlier layer the request is compared only before it.  Fails
+    unless at least `min_share` of the outputs were compared."""
+    from repro_torch.models import decode_step, init_cache, prefill
     from repro_torch.models.moe import _positions, group_capacity
     from repro_torch.serving.kv_cache import grow_cache
     moe_layers = cfg_moe_layers(cfg)
+    last = cfg.n_layers - 1
     worst, compared, total, flips = 0.0, 0, 0, []
     for r in done:
         S, N = len(r.prompt), len(r.output)
         total += N
-        ids = []
-        prompt = torch.as_tensor(r.prompt, dtype=torch.long,
-                                 device=dev)[None]
-        lg, caches = prefill(params, cfg, prompt, router_ids=ids)
-        resident = {l: [set(int(e) for e in ti[0, s].tolist())
-                        for s in range(S)] for l, ti in zip(moe_layers, ids)}
-        cap = group_capacity(S, cfg)
-        first_bad = S + N
-        for l, ti in zip(moe_layers, ids):
-            kept = (_positions(ti, cfg.n_experts) < cap)[0].all(-1)
-            if not bool(kept.all()):
-                s = int((~kept).nonzero()[0, 0])
-                first_bad = min(first_bad, s)
-                flips.append((r.rid, s, l, "dropped"))
-        caches = grow_cache(cfg, caches, 1, S + N)
-        logits = [lg[0, -1]]
-        for t in range(N - 1):
-            step_ids = []
-            tok = torch.tensor([[r.output[t]]], dtype=torch.long, device=dev)
-            lg, caches = decode_step(params, cfg, tok, caches, S + t,
-                                     router_ids=step_ids)
-            logits.append(lg[0, -1])
-            for l, ti in zip(moe_layers, step_ids):
-                resident[l].append(set(int(e) for e in ti[0, 0].tolist()))
+        resident = {l: [] for l in moe_layers}
+        first_bad, skip = S + N, set()
+        if prefill_as_decode:
+            caches = init_cache(cfg, 1, S + N, device=dev)
+            logits = []
+            seq = list(r.prompt) + list(r.output[:-1])
+            for s_, tok_id in enumerate(seq):
+                step_ids = []
+                tok = torch.tensor([[int(tok_id)]], dtype=torch.long,
+                                   device=dev)
+                lg, caches = decode_step(params, cfg, tok, caches, s_,
+                                         router_ids=step_ids)
+                if s_ >= S - 1:
+                    logits.append(lg[0, -1])
+                for l, ti in zip(moe_layers, step_ids):
+                    resident[l].append(set(int(e)
+                                           for e in ti[0, 0].tolist()))
+        else:
+            ids = []
+            prompt = torch.as_tensor(r.prompt, dtype=torch.long,
+                                     device=dev)[None]
+            lg, caches = prefill(params, cfg, prompt, router_ids=ids)
+            for l, ti in zip(moe_layers, ids):
+                resident[l] = [set(int(e) for e in ti[0, s].tolist())
+                               for s in range(S)]
+            cap = group_capacity(S, cfg)
+            for l, ti in zip(moe_layers, ids):
+                kept = (_positions(ti, cfg.n_experts) < cap)[0].all(-1)
+                if not bool(kept.all()):
+                    s = int((~kept).nonzero()[0, 0])
+                    first_bad = min(first_bad, s)
+                    flips.append((r.rid, s, l, "dropped"))
+            caches = grow_cache(cfg, caches, 1, S + N)
+            logits = [lg[0, -1]]
+            for t in range(N - 1):
+                step_ids = []
+                tok = torch.tensor([[r.output[t]]], dtype=torch.long,
+                                   device=dev)
+                lg, caches = decode_step(params, cfg, tok, caches, S + t,
+                                         router_ids=step_ids)
+                logits.append(lg[0, -1])
+                for l, ti in zip(moe_layers, step_ids):
+                    resident[l].append(set(int(e)
+                                           for e in ti[0, 0].tolist()))
         for l in moe_layers:
             mine = routes[r.rid][l]
             check(len(mine) == S + N - 1,
                   f"request {r.rid}: {len(mine)} served positions in layer "
                   f"{l}, expected {S + N - 1}")
             for s, (a, b) in enumerate(zip(mine, resident[l])):
-                if a != b:
-                    if s < first_bad:
-                        flips.append((r.rid, s, l, "flip"))
-                    first_bad = min(first_bad, s)
-                    break
+                if a == b or s >= first_bad:
+                    continue
+                flips.append((r.rid, s, l, "flip"))
+                if l == last:
+                    skip.add(s)
+                    continue
+                first_bad = s
+                break
         for t in range(N):
             want = logits[t].float()
             got = torch.from_numpy(r.logits[t]).to(dev)
@@ -1162,29 +1240,35 @@ def check_requests_resident(torch, np, dev, cfg, params, done, routes):
                   f"request {r.rid}: non-finite logits at output {t}")
             if S - 1 + t >= first_bad:
                 break
+            if S - 1 + t in skip:
+                continue
             err = (got - want).abs().max().item()
             scale = want.abs().max().item()
             worst = max(worst, err / scale)
             compared += 1
             check(err <= LOGIT_REL_TOL * scale,
-                  f"continuous request {r.rid} output {t}: served vs "
+                  f"{what} request {r.rid} output {t}: served vs "
                   f"resident logits differ by {err} (> {LOGIT_REL_TOL} x "
                   f"{scale}) on an identically routed prefix")
-    check(compared >= total // 2,
-          f"continuous: only {compared} of {total} outputs routed "
+    print(f"{what}: served vs resident ({'prefill as decode' if prefill_as_decode else 'prefill'}) "
+          f"logits on identically routed positions ({compared}/{total} "
+          f"outputs; flips and drops at (rid, position, layer) {flips}): max "
+          f"|diff| / max |logit| = {worst:.4g} (tolerance {LOGIT_REL_TOL})",
+          flush=True)
+    check(compared >= min_share * total,
+          f"{what}: only {compared} of {total} outputs routed "
           f"identically to the resident model")
-    print(f"continuous: served vs resident logits on identically routed "
-          f"prefixes ({compared}/{total} outputs; flips and drops at "
-          f"(rid, position, layer) {flips}): max |diff| / max |logit| = "
-          f"{worst:.4g} (tolerance {LOGIT_REL_TOL})", flush=True)
     return worst, compared, flips
 
 
 def batch_variance_probe(torch, dev, cfg, params):
     """Which of a decode step's products give a row other bits in a batch
     of SERVE_CONCURRENCY than alone, on this card at the served widths:
-    row 0 of each batched product against the same row computed alone."""
-    lp = params["layers"][0]
+    row 0 of each batched product against the same row computed alone.
+    With MLA the attention probes are the absorbed f32 products and the
+    whole absorbed attention."""
+    lp = next(lay for lay in params["layers"]
+              if "router" in lay.get("ffn", {}))
     g = torch.Generator(device=dev).manual_seed(SEED)
     B, d = SERVE_CONCURRENCY, cfg.d_model
     x = torch.randn((B, 1, d), generator=g, device=dev).to(torch.bfloat16)
@@ -1195,9 +1279,17 @@ def batch_variance_probe(torch, dev, cfg, params):
         "shared-expert gate bf16": lambda v: v @ lp["ffn"]["shared"]["w_gate"],
         "lm head bf16": lambda v: v @ params["lm_head"]["w"],
     }
+    if cfg.attn == "mla":
+        probes["latent projection bf16 (wkv_a)"] = \
+            lambda v: v @ lp["attn"]["wkv_a"]
     out = {}
     for name, fn in probes.items():
         out[name] = bool(torch.equal(fn(x)[:1], fn(x[:1])))
+    if cfg.attn == "mla":
+        out.update(mla_variance_probe(torch, dev, cfg, lp["attn"], x, g))
+        print(f"batch-invariance on the card, {cfg.name} (row alone == row "
+              f"in a batch of {B}): {out}", flush=True)
+        return out
     # attention: row 0 at position 5 over T = 16 in a batch padded to 32
     from repro_torch.models.attention import _gqa_scores_to_out
     shape = (B, 32, cfg.n_kv_heads, cfg.head_dim)
@@ -1217,16 +1309,65 @@ def batch_variance_probe(torch, dev, cfg, params):
     return out
 
 
+def mla_variance_probe(torch, dev, cfg, p, x, g):
+    """The absorbed MLA decode's f32 products (``_mla_decode_attend`` with
+    ``absorb=True``), row 0 in a batch of B against row 0 alone, over a
+    random latent cache of T = 32; and the whole absorbed attention of
+    row 0 at position 5 over T = 16 against the batch padded to 32."""
+    from repro_torch.models.attention import _mla_decode_attend, _mla_q
+    B, T = x.shape[0], 32
+    q_nope, q_rope = _mla_q(p, x, cfg)
+    ckv = torch.randn((B, T, cfg.kv_lora_rank), generator=g,
+                      device=dev).to(torch.bfloat16)
+    k_rope = torch.randn((B, T, cfg.qk_rope_dim), generator=g,
+                         device=dev).to(torch.bfloat16)
+    wkv_b = p["wkv_b"].reshape(cfg.kv_lora_rank, cfg.n_heads,
+                               cfg.qk_nope_dim + cfg.v_head_dim).float()
+    w_k, w_v = wkv_b[:, :, :cfg.qk_nope_dim], wkv_b[:, :, cfg.qk_nope_dim:]
+    q_c = torch.einsum("bshd,chd->bshc", q_nope.float(), w_k)
+    sc = torch.einsum("bshc,btc->bhst", q_c, ckv.float())
+    attn = torch.softmax(sc, dim=-1)
+    o_c = torch.einsum("bhst,btc->bshc", attn, ckv.float())
+    probes = {
+        "MLA q absorption f32 (q_nope . w_k)": lambda n: torch.einsum(
+            "bshd,chd->bshc", q_nope[:n].float(), w_k),
+        "MLA scores over the latent f32": lambda n: torch.einsum(
+            "bshc,btc->bhst", q_c[:n], ckv[:n].float()),
+        "MLA latent weighted sum f32": lambda n: torch.einsum(
+            "bhst,btc->bshc", attn[:n], ckv[:n].float()),
+        "MLA value absorption f32 (o_c . w_v)": lambda n: torch.einsum(
+            "bshc,chd->bshd", o_c[:n], w_v),
+    }
+    out = {name: bool(torch.equal(fn(B)[:1], fn(1)))
+           for name, fn in probes.items()}
+    pos = torch.tensor([5, 31, 20, 9], device=dev)[:B]
+    mask = (torch.arange(T, device=dev)[None] <= pos[:, None])[:, None, None]
+    full = _mla_decode_attend(p, x, cfg, q_nope, q_rope, ckv, k_rope, mask,
+                              True)
+    alone = _mla_decode_attend(p, x[:1], cfg, q_nope[:1], q_rope[:1],
+                               ckv[:1, :16], k_rope[:1, :16],
+                               mask[:1, ..., :16], True)
+    out["MLA absorbed attention over a padded T"] = bool(torch.equal(
+        full[:1].view(torch.int16), alone.view(torch.int16)))
+    return out
+
+
+def serving_traffic(np, cfg):
+    """The serving phase's requests: prompt lengths, prompts drawn from
+    `cfg`'s vocabulary, and the longest request's length."""
+    rng = np.random.default_rng(SEED)
+    lo, hi = SERVE_PROMPT_LENS
+    lens = rng.integers(lo, hi + 1, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
+    return lens, prompts, int(max(lens)) + SERVE_NEW_TOKENS
+
+
 def serving_phase(torch, np, dev, cfg, params, store_dir):
     """Continuous batching, two requests alone, the static baseline, the
     resident server and the CLI.  Returns the continuous path's launches
     and every path's numbers."""
     from repro_torch.serving.zipserve import ZipServer
-    rng = np.random.default_rng(SEED)
-    lo, hi = SERVE_PROMPT_LENS
-    lens = rng.integers(lo, hi + 1, SERVE_REQUESTS)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
-    max_len = int(max(lens)) + SERVE_NEW_TOKENS
+    lens, prompts, max_len = serving_traffic(np, cfg)
     print(f"serving: {SERVE_REQUESTS} requests, prompt lengths "
           f"{lens.tolist()}, {SERVE_NEW_TOKENS} greedy tokens each, "
           f"concurrency {SERVE_CONCURRENCY}, arrivals {list(SERVE_ARRIVALS)} "
@@ -1327,26 +1468,32 @@ def serving_phase(torch, np, dev, cfg, params, store_dir):
         a.output == b.output for a, b in zip(resident, cont))
 
     # -- the port's CLI ----------------------------------------------------
+    numbers["cli_s"] = run_cli(torch, CLI_ARGS, "cli")
+    return launches, numbers
+
+
+def run_cli(torch, args, what: str) -> float:
+    """The port's serve CLI once as a subprocess: exit 0 and its
+    ``metrics:`` and ``cache:`` lines.  Returns its wall seconds."""
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cli = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", *CLI_ARGS],
+        [sys.executable, "-m", "repro_torch.launch.serve", *args],
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
         capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
     cli_s = time.perf_counter() - t0
     lines = cli.stdout.splitlines()
     for ln in lines[-12:]:
-        print(f"cli: {ln}", flush=True)
+        print(f"{what}: {ln}", flush=True)
     check(cli.returncode == 0,
-          f"the CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
+          f"{what}: the CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
     for head in ("metrics:", "cache:"):
         check(any(ln.startswith(head) for ln in lines),
-              f"the CLI printed no {head!r} line")
-    numbers["cli_s"] = cli_s
-    print(f"cli: python -m repro_torch.launch.serve {' '.join(CLI_ARGS)}: "
+              f"{what}: the CLI printed no {head!r} line")
+    print(f"{what}: python -m repro_torch.launch.serve {' '.join(args)}: "
           f"exit 0 in {cli_s:.1f} s", flush=True)
-    return launches, numbers
+    return cli_s
 
 
 def migration_run(torch, np, dev, cfg, store_dir, group):
@@ -1476,6 +1623,199 @@ def migration_run(torch, np, dev, cfg, store_dir, group):
                       "wall_s": wall}
 
 
+# ----------------------------------------------------------------------------
+# phase 5: the MLA MoE family, deepseekv2-lite at full width
+# ----------------------------------------------------------------------------
+def mla_absorb_check(torch, dev, arch: str):
+    """MLA decode with ``absorb=True`` against ``absorb=False`` on one
+    layer of `arch` at its full attention widths, random weights, B = 4
+    rows at positions MLA_CHECK_POSITIONS over a random latent cache of
+    MLA_CHECK_T: the same function computed in another order.  Returns
+    max |diff| / max |y| of each form (``mla_decode_rows`` and
+    ``mla_decode``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn_lib
+    cfg = dataclasses.replace(get_config(arch), n_layers=1)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    p = attn_lib.init_attn(g, cfg, dev)
+    B, T = len(MLA_CHECK_POSITIONS), MLA_CHECK_T
+    x = torch.randn((B, 1, cfg.d_model), generator=g, device=dev).to(
+        torch.bfloat16)
+    cache = {"ckv": torch.randn((B, T, cfg.kv_lora_rank), generator=g,
+                                device=dev).to(torch.bfloat16),
+             "k_rope": torch.randn((B, T, cfg.qk_rope_dim), generator=g,
+                                   device=dev).to(torch.bfloat16)}
+    positions = torch.tensor(MLA_CHECK_POSITIONS, device=dev)
+    out = {}
+    for form, run in (
+            ("decode_rows", lambda c, a: attn_lib.mla_decode_rows(
+                p, x, cfg, c, positions, absorb=a)),
+            ("decode", lambda c, a: attn_lib.mla_decode(
+                p, x, cfg, c, T - 1, absorb=a))):
+        ys = {}
+        for absorb in (True, False):
+            c = {k: v.clone() for k, v in cache.items()}
+            ys[absorb], _ = run(c, absorb)
+        a, b = ys[True].float(), ys[False].float()
+        check(bool(torch.isfinite(a).all()) and a.shape == (
+            B, 1, cfg.d_model), f"{arch} MLA {form}: {a.shape}")
+        rel = (a - b).abs().max().item() / b.abs().max().item()
+        check(rel <= MLA_ABSORB_REL_TOL,
+              f"{arch} MLA {form}: absorbed vs unabsorbed differ by {rel} "
+              f"of max |y| (> {MLA_ABSORB_REL_TOL})")
+        out[form] = rel
+    print(f"mla-absorb: {arch} (d_model {cfg.d_model}, {cfg.n_heads} heads, "
+          f"kv_lora {cfg.kv_lora_rank}, q_lora {cfg.q_lora_rank}, rope "
+          f"{cfg.qk_rope_dim}, nope {cfg.qk_nope_dim}, v {cfg.v_head_dim}), "
+          f"B {B}, T {T}: absorbed vs unabsorbed max |diff| / max |y| = "
+          f"{out} (tolerance {MLA_ABSORB_REL_TOL})", flush=True)
+    return out
+
+
+def mla_phase(torch, np, dev):
+    """deepseekv2-lite at every published width, depth cut to MLA_LAYERS:
+    its own store (built under build/, checked lossless), the ragged
+    device-slab path from an empty cache and continuous batching over
+    ``decode_rows``, each held against the resident model, and the
+    resident BatchServer over the same requests; then absorbed against
+    unabsorbed MLA decode at both MLA configs' widths, the
+    batch-invariance probe of the absorbed products, and the CLI with
+    ``--arch deepseekv2-lite``.  Returns each path's launches and the
+    phase's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.store import build_store
+    from repro_torch.models import init_params
+    from repro_torch.serving.zipserve import ZipServer
+    full = get_config(MLA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MLA_LAYERS)
+    moe = cfg_moe_layers(cfg)
+    print(f"config {MLA_ARCH}: d_model {cfg.d_model}, {cfg.n_heads} MLA "
+          f"heads (kv_lora {cfg.kv_lora_rank}, q_lora {cfg.q_lora_rank}, "
+          f"rope {cfg.qk_rope_dim}, nope {cfg.qk_nope_dim}, v "
+          f"{cfg.v_head_dim}), {cfg.n_experts} experts top-{cfg.top_k}, "
+          f"d_expert {cfg.d_expert}, {cfg.n_shared_experts} shared, first "
+          f"{cfg.first_dense} dense (d_ff {cfg.d_ff}), vocab "
+          f"{cfg.vocab_size}; depth cut {full.n_layers} -> {MLA_LAYERS} "
+          f"layers (MoE layers {moe})", flush=True)
+    launches, numbers = {}, {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(cfg, seed=SEED, device=dev)
+    with tempfile.TemporaryDirectory(prefix="smoke_store_mla_",
+                                     dir=ROOT / "build") as store_dir:
+        t0 = time.perf_counter()
+        store = build_store(params, cfg, store_dir, device=dev)
+        build_s = time.perf_counter() - t0
+        ratio = store.ratio()
+        print(f"mla build_store: codec {store.codec.name}, "
+              f"{len(store.groups)} groups, {build_s:.1f} s, ratio "
+              f"{ratio:.4f}", flush=True)
+        check_lossless(torch, store, params, cfg, dev)
+        store.close()
+        numbers.update(build_store_s=build_s, store_ratio=ratio)
+
+        def zip_server():
+            gc.collect()
+            return ZipServer(params, cfg, store_dir, L=6, prefetch=True,
+                             device=dev, pool_sizes=POOLS_SMALL,
+                             device_cache=True, ffn_impl="ragged")
+
+        # -- mla-ragged: a batch of 4 greedy requests from an empty cache --
+        rng = np.random.default_rng(SEED)
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                               (BATCH, 1))).to(dev)
+        zs = zip_server()
+        try:
+            run = serve(torch, zs, prompt, NEW_TOKENS, NEW_TOKENS + 1)
+        finally:
+            zs.close()
+        launches["mla-ragged"] = run["launches"]
+        nums = path_numbers(run, len(moe))
+        nums["splice_launches"] = run["launches"]["splice"] + \
+            run["launches"]["splice_admit"]
+        nums["logit_rel_err"] = check_resident(torch, np, dev, cfg, params,
+                                               run, "mla-ragged")
+        numbers["mla-ragged"] = nums
+        print(f"mla-ragged: served {run['served'].tolist()}; TPOT "
+              f"{nums['tpot_ms']} ms, blocked {nums['blocked_ms']} ms per "
+              f"step, hit rate {nums['hit_rate']}, splice launches "
+              f"{run['launches']['splice']} + splice-admit "
+              f"{run['launches']['splice_admit']}; launches "
+              f"{run['launches']}; {json.dumps(nums)}", flush=True)
+        del run
+
+        # -- mla-continuous: the serving phase's traffic -------------------
+        lens, prompts, max_len = serving_traffic(np, cfg)
+        zs = zip_server()
+        try:
+            srv, cont, cl, served = serve_requests(
+                torch, cfg, prompts, SERVE_ARRIVALS, max_len, zs=zs,
+                count=True)
+            routes = served_routes(zs)
+        finally:
+            zs.close()
+        launches["mla-continuous"] = cl
+        out = serving_numbers("mla-continuous", srv, cont, served)
+        print(f"mla-continuous: prompt lengths {lens.tolist()}; metrics "
+              f"{json.dumps(srv.metrics())}; launches {cl}", flush=True)
+        for r in cont:
+            check(r.error is None and len(r.output) == SERVE_NEW_TOKENS
+                  and len(r.logits) == SERVE_NEW_TOKENS,
+                  f"mla-continuous request {r.rid}: {len(r.output)} tokens, "
+                  f"error {r.error}")
+        check(srv.pool.used_bytes() == 0,
+              f"mla-continuous: {srv.pool.used_bytes()} KV bytes still held")
+        page = srv.pool.page_nbytes()
+        want_page = cfg.n_layers * (cfg.kv_lora_rank + cfg.qk_rope_dim) \
+            * 2 * srv.pool.page_size
+        check(page == want_page, f"mla-continuous: a KV page holds {page} B, "
+              f"expected {want_page} B")
+        # the server reads a prompt one decode step per token (absorbed
+        # MLA throughout); the resident prefill's full-sequence MLA rounds
+        # each token's K/V to bf16 instead: held to the same tolerance and
+        # reported, the comparison that must cover half the outputs is the
+        # one fed as the server reads
+        worst_pf, compared_pf, flips_pf = check_requests_resident(
+            torch, np, dev, cfg, params, cont, routes, "mla-continuous",
+            min_share=0.0)
+        worst, compared, flips = check_requests_resident(
+            torch, np, dev, cfg, params, cont, routes, "mla-continuous",
+            prefill_as_decode=True)
+        out.update(logit_rel_err=worst, outputs_compared=compared,
+                   flips=flips, prefill_logit_rel_err=worst_pf,
+                   prefill_outputs_compared=compared_pf,
+                   prefill_flips=flips_pf, kv_page_bytes=page,
+                   kv_page_bytes_per_layer=page // cfg.n_layers)
+        print(f"mla-continuous: KV page {page} B ({page // cfg.n_layers} B "
+              f"per layer, {srv.pool.page_size} tokens), pool "
+              f"{srv.pool.pool_bytes()} B, {srv.pool.used_bytes()} B held "
+              f"after serving", flush=True)
+        numbers["mla-continuous"] = out
+
+        # -- the resident BatchServer: MLA prefill + decode ---------------
+        gc.collect()
+        srv, resident, _, served = serve_requests(
+            torch, cfg, prompts, SERVE_ARRIVALS, max_len, params=params,
+            continuous=False)
+        numbers["mla-resident"] = serving_numbers("mla-resident", srv,
+                                                  resident, served)
+        for r in resident:
+            check(len(r.output) == SERVE_NEW_TOKENS,
+                  f"mla-resident request {r.rid}: {len(r.output)} tokens")
+        numbers["mla-resident"]["tokens_equal_continuous"] = sum(
+            a.output == b.output for a, b in zip(resident, cont))
+        numbers["batch_invariance"] = batch_variance_probe(torch, dev, cfg,
+                                                           params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    numbers["absorb"] = {arch: mla_absorb_check(torch, dev, arch)
+                         for arch in (MLA_ARCH, "deepseek-v2-236b")}
+    numbers["cli_s"] = run_cli(torch, ("--arch", MLA_ARCH) + CLI_ARGS,
+                               "mla-cli")
+    return launches, numbers
+
+
 def cfg_moe_layers(cfg):
     return [i for i in range(cfg.n_layers) if cfg.moe_layer(i)]
 
@@ -1521,6 +1861,8 @@ def main():
     with tempfile.TemporaryDirectory(prefix="smoke_store_",
                                      dir=ROOT / "build") as tmp:
         launches, e2e = main_path(torch, np, dev, cfg, tmp)
+    mla_launches, e2e["mla"] = mla_phase(torch, np, dev)
+    launches.update(mla_launches)
     # every kernel runs on some path, and every path runs its kernels; a
     # kernel's launches are its count on the first path that runs it
     for path, names in PATH_KERNELS.items():

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.model import check_supported
 from repro_torch.serving.kv_cache import map_tree, unstack_layers
 
 
@@ -32,7 +33,9 @@ def tensor_from_numpy(arr, device) -> torch.Tensor:
 
 def params_from_jax(tree: Dict[str, Any], cfg, device=None) -> Dict[str, Any]:
     """JAX-package parameter tree (numpy leaves) -> port parameters on
-    `device` (the card by default)."""
+    `device` (the card by default).  MLA leaves cross as they are: the
+    f32 norm scales (``kv_norm``, ``q_norm``) stay f32."""
+    check_supported(cfg)
     dev = resolve_device(device)
     conv = lambda a: tensor_from_numpy(a, dev)          # noqa: E731
     layers = unstack_layers(tree["decoder"], cfg)

@@ -5,6 +5,10 @@ CPU with the kernels' plain versions).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
       --mode zipmoe-batch --device-cache --requests 8 --max-new 16
 
+--arch takes qwen2-moe-a2.7b (qwen1.5-moe-a2.7b), deepseekv2-lite or
+deepseek-v2-236b, served at the CLI's smoke size (d_model 256, 6 layers,
+vocab 2048).
+
 --mode resident     : in-memory serving (BatchServer: prefill + decode on
                       the resident weights).
 --mode zipmoe       : routed experts live ONLY in the compressed store; every
@@ -47,6 +51,7 @@ from repro_torch.core.faults import FaultPlan
 from repro_torch.core.store import build_store
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
+from repro_torch.models.model import check_supported
 from repro_torch.serving.server import BatchServer
 from repro_torch.serving.zipserve import ZipServer
 
@@ -321,9 +326,10 @@ def serve_steps(args, cfg, zs, rng):
 
 def main(argv=None):
     args = parse_args(argv)
-    dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch, d_model=256, n_layers=6,
                            vocab_size=2048)
+    check_supported(cfg)
+    dev = resolve_device(args.device)
     params = init_params(cfg, seed=0, device=dev)
     rng = np.random.default_rng(0)
 

@@ -1,23 +1,32 @@
-"""GQA attention (RoPE, optional qk-norm), plain PyTorch in f32.
+"""Attention: GQA (RoPE, optional qk-norm) and MLA (DeepSeek-V2), plain
+PyTorch in f32.
 
-KV cache per layer: ``{"k": [B, T, Hkv, D], "v": [B, T, Hkv, D]}``.  The
-decode functions write the new token's K/V into the cache **in place**
-(the JAX package returns updated copies) and still return the cache so
-callers read the same way:
+KV cache per layer::
 
-* :func:`gqa_decode` — every row at one shared position;
-* :func:`gqa_decode_rows` — a position per row (continuous batching);
-* :func:`gqa_forward` — a whole causal sequence (prefill), optionally
-  returning its K/V; at ``S >= CHUNK_THRESHOLD`` it loops over query
-  chunks so the scores never hold ``[S, S]`` at once.
+    GQA: {"k": [B, T, Hkv, D], "v": [B, T, Hkv, D]}
+    MLA: {"ckv": [B, T, kv_lora_rank], "k_rope": [B, T, qk_rope_dim]}
 
-Scores and softmax run in f32 on f32 inputs, as the JAX package computes
-them; ``scaled_dot_product_attention`` is not used.
+The decode functions write the new token's K/V (MLA: its latent) into the
+cache **in place** (the JAX package returns updated copies) and still
+return the cache so callers read the same way:
+
+* :func:`gqa_decode` / :func:`mla_decode` — every row at one shared
+  position;
+* :func:`gqa_decode_rows` / :func:`mla_decode_rows` — a position per row
+  (continuous batching);
+* :func:`gqa_forward` / :func:`mla_forward` — a whole causal sequence
+  (prefill), optionally returning its cache; at ``S >= CHUNK_THRESHOLD``
+  they loop over query chunks so the scores never hold ``[S, S]`` at once.
+
+Scores, softmax and (MLA) the absorbed products run in f32 on f32 inputs,
+as the JAX package computes them; ``scaled_dot_product_attention`` is not
+used.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.models.layers import apply_rope, dtype_of, normal
@@ -33,19 +42,42 @@ def init_attn(gen, cfg, device):
         return normal(gen, shape, (2.0 / (shape[0] + shape[-1])) ** 0.5, dt,
                       device)
 
+    def ones(n):
+        return torch.ones(n, dtype=torch.float32, device=device)
+
+    if cfg.attn == "mla":
+        qk_head = cfg.qk_nope_dim + cfg.qk_rope_dim
+        p = {}
+        if cfg.q_lora_rank:
+            p["wq_a"] = dense((d, cfg.q_lora_rank))
+            p["q_norm"] = ones(cfg.q_lora_rank)
+            p["wq_b"] = dense((cfg.q_lora_rank, cfg.n_heads * qk_head))
+        else:
+            p["wq"] = dense((d, cfg.n_heads * qk_head))
+        p["wkv_a"] = dense((d, cfg.kv_lora_rank + cfg.qk_rope_dim))
+        p["kv_norm"] = ones(cfg.kv_lora_rank)
+        p["wkv_b"] = dense((cfg.kv_lora_rank,
+                            cfg.n_heads * (cfg.qk_nope_dim + cfg.v_head_dim)))
+        p["wo"] = dense((cfg.n_heads * cfg.v_head_dim, d))
+        return p
     p = {"wq": dense((d, cfg.n_heads * hd)),
          "wk": dense((d, cfg.n_kv_heads * hd)),
          "wv": dense((d, cfg.n_kv_heads * hd)),
          "wo": dense((cfg.n_heads * hd, d))}
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones(hd, dtype=torch.float32, device=device)
-        p["k_norm"] = torch.ones(hd, dtype=torch.float32, device=device)
+        p["q_norm"] = ones(hd)
+        p["k_norm"] = ones(hd)
     return p
 
 
 def init_kv_cache(cfg, batch, length, device, dtype=None):
     """Allocate an (empty) per-layer KV cache."""
     dt = dtype or dtype_of(cfg)
+    if cfg.attn == "mla":
+        return {"ckv": torch.zeros((batch, length, cfg.kv_lora_rank),
+                                   dtype=dt, device=device),
+                "k_rope": torch.zeros((batch, length, cfg.qk_rope_dim),
+                                      dtype=dt, device=device)}
     shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -56,6 +88,12 @@ def rms_norm_headwise(scale, x, eps=1e-6):
     xf = x.float()
     ms = xf.square().mean(-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * scale).to(x.dtype)
+
+
+def _where_mask(sc, mask):
+    """`sc` where `mask` holds, NEG_INF elsewhere."""
+    return torch.where(mask, sc, torch.tensor(NEG_INF, dtype=sc.dtype,
+                                              device=sc.device))
 
 
 def _gqa_scores_to_out(q, k, v, mask, *, f32_inputs=True):
@@ -73,9 +111,7 @@ def _gqa_scores_to_out(q, k, v, mask, *, f32_inputs=True):
     scores = torch.einsum("bshgd,bthd->bhgst", qf, kf)
     scores = scores / math.sqrt(D)
     if mask is not None:
-        scores = torch.where(mask[:, None, None, :, :], scores,
-                             torch.tensor(NEG_INF, dtype=scores.dtype,
-                                          device=scores.device))
+        scores = _where_mask(scores, mask[:, None, None, :, :])
     attn = torch.softmax(scores, dim=-1)
     if not f32_inputs:
         attn = attn.to(q.dtype).float()
@@ -177,4 +213,163 @@ def gqa_decode_rows(p, x, cfg, cache, positions):
             <= positions[:, None])[:, None]                   # [B,1,T]
     out = _gqa_scores_to_out(q, cache["k"], cache["v"], mask)
     y = out.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    return y, cache
+
+
+# ----------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ----------------------------------------------------------------------------
+def _mla_scale(cfg) -> float:
+    """1/sqrt(qk_nope_dim + qk_rope_dim), rounded in f32 as the JAX
+    package rounds it."""
+    return float(np.float32(1.0) / np.sqrt(
+        np.float32(cfg.qk_nope_dim + cfg.qk_rope_dim)))
+
+
+def _mla_q(p, x, cfg):
+    """x: [B, S, d] -> (q_nope [B,S,H,Dn], q_rope [B,S,H,Dr]), unrotated;
+    with a q-LoRA rank the query goes through wq_a, q_norm and wq_b."""
+    B, S, _ = x.shape
+    qk_head = cfg.qk_nope_dim + cfg.qk_rope_dim
+    if cfg.q_lora_rank:
+        q = rms_norm_headwise(p["q_norm"], x @ p["wq_a"]) @ p["wq_b"]
+    else:
+        q = x @ p["wq"]
+    q = q.reshape(B, S, cfg.n_heads, qk_head)
+    return q.split([cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
+
+
+def _mla_kv_latent(p, x, cfg, positions):
+    """x: [B, S, d]; positions: [B, S] int -> (ckv [B,S,C] normed with the
+    f32 ``kv_norm`` and cast back, k_rope [B,S,Dr] rotated as one head with
+    frequencies from ``qk_rope_dim``)."""
+    ckv, k_rope = (x @ p["wkv_a"]).split(
+        [cfg.kv_lora_rank, cfg.qk_rope_dim], dim=-1)
+    ckv = rms_norm_headwise(p["kv_norm"], ckv)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return ckv, k_rope
+
+
+def _mla_scores_to_out(q_nope, q_rope, k_nope, k_rope, v, mask, scale):
+    """q_*: [B,S,H,D*]; k_nope, v: [B,T,H,D*]; k_rope: [B,T,Dr]; mask: bool
+    broadcastable to [B,H,S,T] or None.  f32 throughout; returns
+    [B,S,H,Dv] f32."""
+    sc = (torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope.float())
+          + torch.einsum("bshd,btd->bhst", q_rope.float(),
+                         k_rope.float())) * scale
+    if mask is not None:
+        sc = _where_mask(sc, mask)
+    attn = torch.softmax(sc, dim=-1)
+    return torch.einsum("bhst,bthd->bshd", attn, v.float())
+
+
+def _chunked_mla(q_nope, q_rope, k_nope, k_rope, v, scale, q_chunk=Q_CHUNK):
+    """Causal MLA attention, q chunked.  q_*: [B,S,H,D*]; k_rope: [B,S,Dr].
+    Returns [B,S,H,Dv] in the activation dtype."""
+    S = q_nope.shape[1]
+    outs = [_mla_scores_to_out(
+        q_nope[:, s0:s0 + q_chunk], q_rope[:, s0:s0 + q_chunk], k_nope,
+        k_rope, v, _causal_mask(q_chunk, S, q_nope.device, s0)[:, None],
+        scale) for s0 in range(0, S, q_chunk)]
+    return torch.cat(outs, dim=1).to(q_nope.dtype)
+
+
+def mla_forward(p, x, cfg, positions, *, causal=True, return_cache=False):
+    """Full-sequence MLA.  x: [B, S, d]; positions: [B, S] int.  Returns
+    y [B, S, d], and with `return_cache` also the latent cache
+    ``{"ckv": [B,S,C], "k_rope": [B,S,Dr]}``."""
+    B, S, _ = x.shape
+    q_nope, q_rope = _mla_q(p, x, cfg)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv, k_rope = _mla_kv_latent(p, x, cfg, positions)
+    kv = (ckv @ p["wkv_b"]).reshape(B, S, cfg.n_heads,
+                                    cfg.qk_nope_dim + cfg.v_head_dim)
+    k_nope, v = kv.split([cfg.qk_nope_dim, cfg.v_head_dim], dim=-1)
+    scale = _mla_scale(cfg)
+    if causal and S >= CHUNK_THRESHOLD and S % Q_CHUNK == 0:
+        out = _chunked_mla(q_nope, q_rope, k_nope, k_rope, v, scale)
+    else:
+        mask = _causal_mask(S, S, x.device)[:, None] if causal else None
+        out = _mla_scores_to_out(q_nope, q_rope, k_nope, k_rope, v, mask,
+                                 scale).to(x.dtype)
+    y = out.reshape(B, S, cfg.n_heads * cfg.v_head_dim) @ p["wo"]
+    if return_cache:
+        return y, {"ckv": ckv, "k_rope": k_rope}
+    return y
+
+
+def _mla_decode_attend(p, x, cfg, q_nope, q_rope, ckv, k_rope, mask,
+                       absorb):
+    """One token's MLA attention over the updated latent cache.  mask: bool
+    broadcastable to [B, H, 1, T].  ``wkv_b``'s columns are laid out
+    ``[C, H, Dn + Dv]``.  ``absorb`` folds the key projection into the
+    query and the value projection into the output, so the scores and the
+    weighted sum run over the latent; otherwise per-token K/V are rebuilt
+    from it.  Both in f32; the same function in another order."""
+    B = x.shape[0]
+    scale = _mla_scale(cfg)
+    wkv_b = p["wkv_b"].reshape(cfg.kv_lora_rank, cfg.n_heads,
+                               cfg.qk_nope_dim + cfg.v_head_dim).float()
+    qr, kr, cf = q_rope.float(), k_rope.float(), ckv.float()
+    if absorb:
+        w_k = wkv_b[:, :, :cfg.qk_nope_dim]                     # [C,H,Dn]
+        w_v = wkv_b[:, :, cfg.qk_nope_dim:]                     # [C,H,Dv]
+        q_c = torch.einsum("bshd,chd->bshc", q_nope.float(), w_k)
+        sc = (torch.einsum("bshc,btc->bhst", q_c, cf)
+              + torch.einsum("bshd,btd->bhst", qr, kr)) * scale
+        attn = torch.softmax(_where_mask(sc, mask), dim=-1)
+        o_c = torch.einsum("bhst,btc->bshc", attn, cf)
+        out = torch.einsum("bshc,chd->bshd", o_c, w_v)
+    else:
+        kv = torch.einsum("btc,chd->bthd", cf, wkv_b)
+        k_nope, v = kv.split([cfg.qk_nope_dim, cfg.v_head_dim], dim=-1)
+        sc = (torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope)
+              + torch.einsum("bshd,btd->bhst", qr, kr)) * scale
+        attn = torch.softmax(_where_mask(sc, mask), dim=-1)
+        out = torch.einsum("bhst,bthd->bshd", attn, v)
+    out = out.to(x.dtype).reshape(B, 1, cfg.n_heads * cfg.v_head_dim)
+    return out @ p["wo"]
+
+
+def mla_decode(p, x, cfg, cache, pos: int, *, absorb=True):  # hot-path
+    """MLA decode over the latent cache.  x: [B, 1, d]; cache ``{"ckv":
+    [B,T,C], "k_rope": [B,T,Dr]}``; pos: the new token's index.  The new
+    latent is written at `pos` in place; every row attends over positions
+    ``<= pos``.  ``absorb=True`` (what the server runs) is the
+    matrix-absorption form.  Returns (y [B, 1, d], cache)."""
+    B = x.shape[0]
+    T = cache["ckv"].shape[1]
+    posv = torch.full((B, 1), int(pos), dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg)
+    q_rope = apply_rope(q_rope, posv, cfg.rope_theta)
+    ckv_new, k_rope_new = _mla_kv_latent(p, x, cfg, posv)
+    cache["ckv"][:, pos] = ckv_new[:, 0]
+    cache["k_rope"][:, pos] = k_rope_new[:, 0]
+    mask = (torch.arange(T, device=x.device) <= pos)[None, None, None, :]
+    y = _mla_decode_attend(p, x, cfg, q_nope, q_rope, cache["ckv"],
+                           cache["k_rope"], mask, absorb)
+    return y, cache
+
+
+def mla_decode_rows(p, x, cfg, cache, positions, *,
+                    absorb=True):  # hot-path
+    """Per-row-position MLA decode (continuous batching), the row-vector
+    form of :func:`mla_decode`: positions is an int tensor [B] on x's
+    device; row b writes its latent at ``(b, positions[b])`` in place and
+    attends over entries ``<= positions[b]`` (later ones get exactly zero
+    weight; see :func:`gqa_decode_rows`).  Returns (y [B, 1, d], cache)."""
+    B = x.shape[0]
+    T = cache["ckv"].shape[1]
+    posv = positions[:, None]
+    q_nope, q_rope = _mla_q(p, x, cfg)
+    q_rope = apply_rope(q_rope, posv, cfg.rope_theta)
+    ckv_new, k_rope_new = _mla_kv_latent(p, x, cfg, posv)
+    rows = torch.arange(B, device=x.device)
+    cache["ckv"][rows, positions] = ckv_new[:, 0]
+    cache["k_rope"][rows, positions] = k_rope_new[:, 0]
+    mask = (torch.arange(T, device=x.device)[None, :]
+            <= positions[:, None])[:, None, None]             # [B,1,1,T]
+    y = _mla_decode_attend(p, x, cfg, q_nope, q_rope, cache["ckv"],
+                           cache["k_rope"], mask, absorb)
     return y, cache

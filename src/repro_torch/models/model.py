@@ -1,5 +1,5 @@
 """Model facade: init / init_cache / forward / prefill / decode_step (MoE
-and dense GQA decoders).
+and dense decoders with GQA or MLA attention).
 
 Parameters are a plain dict with a **per-layer list**, not the JAX
 package's scanned stack::
@@ -42,13 +42,16 @@ def stack_layout(cfg):
     return prefix, period, rest // period
 
 
-def _check_supported(cfg):
-    if cfg.attn != "gqa" or cfg.family not in ("moe", "dense") or \
+def check_supported(cfg):
+    """Raise ``NotImplementedError`` for a config the port does not serve:
+    every entry point that takes a config calls this before any work."""
+    if cfg.attn not in ("gqa", "mla") or \
+            cfg.family not in ("moe", "dense") or \
             cfg.encoder_decoder or cfg.mrope or cfg.pos != "rope" or \
             cfg.tie_embeddings or not cfg.embed_inputs:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves decoder-only GQA/RoPE models with "
-            f"MoE or dense FFNs so far")
+            f"{cfg.name}: the port serves decoder-only GQA/MLA RoPE models "
+            f"with MoE or dense FFNs so far")
 
 
 # ----------------------------------------------------------------------------
@@ -68,7 +71,7 @@ def init_layer(gen, cfg, idx: int, device) -> Dict[str, Any]:
 
 def init_params(cfg, seed: int = 0, device=None) -> Dict[str, Any]:
     """Seeded random parameters on `device` (the card by default)."""
-    _check_supported(cfg)
+    check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -81,6 +84,7 @@ def init_params(cfg, seed: int = 0, device=None) -> Dict[str, Any]:
 
 def init_cache(cfg, batch: int, length: int, device=None) -> List[Dict]:
     """Per-layer KV caches on `device` (the card by default)."""
+    check_supported(cfg)
     dev = resolve_device(device)
     return [{"kv": attn_lib.init_kv_cache(cfg, batch, length, dev)}
             for _ in range(cfg.n_layers)]
@@ -94,7 +98,8 @@ def forward(p, cfg, tokens, *, mode="full", moe_impl="einsum",
     """Full-sequence causal pass.  tokens: [B, S] int.  Returns (logits
     [B, S, V], caches, aux): with ``mode="prefill"`` the per-layer list of
     ``{"kv": {"k", "v"}}`` caches of length S, else None; aux is the summed
-    load-balance loss of the MoE layers.  When `router_ids` is a list, the
+    load-balance loss of the MoE layers.  With MLA the caches are the
+    latent ``{"ckv", "k_rope"}``.  When `router_ids` is a list, the
     router's [B, S, k] expert ids of each MoE layer are appended to it."""
     assert mode in ("full", "prefill"), mode
     x = p["embed"]["tok"][tokens]
@@ -103,10 +108,11 @@ def forward(p, cfg, tokens, *, mode="full", moe_impl="einsum",
                              device=x.device)[None].expand(B, S)
     caches = [] if mode == "prefill" else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    attn_forward = attn_lib.mla_forward if cfg.attn == "mla" else \
+        attn_lib.gqa_forward
     for lp in p["layers"]:
         h = apply_norm(lp["norm1"], x, cfg)
-        y, kv = attn_lib.gqa_forward(lp["attn"], h, cfg, positions,
-                                     return_cache=True)
+        y, kv = attn_forward(lp["attn"], h, cfg, positions, return_cache=True)
         if caches is not None:
             caches.append({"kv": kv})
         x = x + y
@@ -141,9 +147,11 @@ def decode_step(p, cfg, tokens, caches, pos: int, router_ids=None):
     caches).  When `router_ids` is a list, the router's [B,1,k] expert ids
     of each MoE layer are appended to it."""
     x = p["embed"]["tok"][tokens]
+    attn_decode = attn_lib.mla_decode if cfg.attn == "mla" else \
+        attn_lib.gqa_decode
     for lp, cache in zip(p["layers"], caches):
         h = apply_norm(lp["norm1"], x, cfg)
-        y, _ = attn_lib.gqa_decode(lp["attn"], h, cfg, cache["kv"], pos)
+        y, _ = attn_decode(lp["attn"], h, cfg, cache["kv"], pos)
         x = x + y
         if "ffn" in lp:
             h2 = apply_norm(lp["norm2"], x, cfg)

@@ -30,7 +30,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import init_kv_cache
-from repro_torch.models.model import init_cache, stack_layout
+from repro_torch.models.model import check_supported, init_cache, \
+    stack_layout
 
 
 def map_tree(fn, tree):
@@ -110,9 +111,10 @@ def cache_bytes(cache) -> int:
 class KVPagePool:
     """Fixed-size KV page pool shared by all active requests.
 
-    Per layer, the sequence leaves (GQA ``k``/``v``) live in
-    ``[n_pages, page_size, Hkv, D]`` device buffers addressed through
-    per-request page tables.  ``max_slots`` bounds how many requests hold
+    Per layer, the sequence leaves live in ``[n_pages, page_size, ...]``
+    device buffers (GQA ``k``/``v``: ``[..., Hkv, D]``; MLA ``ckv``:
+    ``[..., kv_lora_rank]`` and ``k_rope``: ``[..., qk_rope_dim]``)
+    addressed through per-request page tables.  ``max_slots`` bounds how many requests hold
     pages at once (one slot each).  The port serves no family with
     sequence-free state yet (SSM state, cross-attention K/V), so a slot
     holds no bytes.  All bookkeeping (free lists, tables) is host-side
@@ -125,12 +127,13 @@ class KVPagePool:
         if page_size < 1 or n_pages < 1 or max_slots < 1:
             raise ValueError(f"page_size {page_size}, n_pages {n_pages} and "
                              f"max_slots {max_slots} must be >= 1")
+        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.page_size = int(page_size)
         self.n_pages = int(n_pages)
         self.max_slots = int(max_slots)
-        # per layer {"kv": {"k", "v"}}, each [n_pages, page_size, Hkv, D]
+        # per layer {"kv": {leaf: [n_pages, page_size, ...]}}
         self._paged: List[Dict] = [
             {"kv": init_kv_cache(cfg, self.n_pages, self.page_size,
                                  self.device)}
@@ -211,7 +214,7 @@ class KVPagePool:
     # -- step views ------------------------------------------------------
     def gather(self, rids: Sequence[int]) -> List[Dict]:
         """Per-layer caches for one decode step over `rids`: each sequence
-        leaf becomes a ``[B, T_pad, Hkv, D]`` COPY (advanced indexing),
+        leaf becomes a ``[B, T_pad, ...]`` COPY (advanced indexing),
         ``T_pad`` the longest active allocation; short rows pad with their
         own first page, masked, so its contents are irrelevant.  The views
         have the structure ``models.init_cache`` gives, so the decode path

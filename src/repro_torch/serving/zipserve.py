@@ -70,6 +70,12 @@ decompression + bit-splice recovery) before the FFN runs.
   demand and predicted experts, and per-request hits are attributed by
   pure residency queries (``request_summary()``).
 
+Model families: GQA and MLA attention (``cfg.attn``); an MLA config
+decodes through ``mla_decode`` / ``mla_decode_rows`` (absorbed) over the
+latent KV cache, and a dense layer (deepseek-v2's first) stays resident
+while the store still holds it as group ``(layer, 0)``, as the JAX package
+serves it.  Any other family is refused at construction.
+
 Not ported yet: the multi-device peer tier (``mesh_devices`` raises
 ``NotImplementedError``).
 
@@ -98,7 +104,7 @@ from repro_torch.kernels.ops import (bucket_rows, fused_zip_gemm,
                                      slab_gemm, zip_gemm_batch)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import apply_mlp, apply_norm, silu
-from repro_torch.models.model import init_cache
+from repro_torch.models.model import check_supported, init_cache
 from repro_torch.models.moe import route
 
 
@@ -149,6 +155,7 @@ class ZipServer:
         splices host-mode recoveries with the splice kernel on `device`
         instead of numpy: the grouped/ragged FFNs then take the spliced
         tensor on the device, the ``"loop"`` oracle downloads it."""
+        check_supported(cfg)
         assert ffn_impl in ("ragged", "grouped", "loop"), ffn_impl
         if mesh_devices != 1:
             raise NotImplementedError("mesh_devices is not ported yet")
@@ -1022,7 +1029,12 @@ class ZipServer:
         # expert work inside goes through the grouped-GEMM kernels)
         for idx, (lp, cache) in enumerate(zip(self.layers, caches)):
             h = apply_norm(lp["norm1"], x, cfg)
-            y, _ = attn_lib.gqa_decode(lp["attn"], h, cfg, cache["kv"], pos)
+            if cfg.attn == "mla":
+                y, _ = attn_lib.mla_decode(lp["attn"], h, cfg, cache["kv"],
+                                           pos)
+            else:
+                y, _ = attn_lib.gqa_decode(lp["attn"], h, cfg, cache["kv"],
+                                           pos)
             x = x + y
             if "ffn" in lp:
                 h2 = apply_norm(lp["norm2"], x, cfg)
@@ -1061,8 +1073,12 @@ class ZipServer:
         # expert work inside goes through the grouped-GEMM kernels)
         for idx, (lp, cache) in enumerate(zip(self.layers, caches)):
             h = apply_norm(lp["norm1"], x, cfg)
-            y, _ = attn_lib.gqa_decode_rows(lp["attn"], h, cfg, cache["kv"],
-                                            positions)
+            if cfg.attn == "mla":
+                y, _ = attn_lib.mla_decode_rows(lp["attn"], h, cfg,
+                                                cache["kv"], positions)
+            else:
+                y, _ = attn_lib.gqa_decode_rows(lp["attn"], h, cfg,
+                                                cache["kv"], positions)
             x = x + y
             if "ffn" in lp:
                 h2 = apply_norm(lp["norm2"], x, cfg)

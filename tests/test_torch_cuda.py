@@ -466,3 +466,126 @@ def test_zipserver_new_paths_launch_kernels(cuda, tmp_path, mode, kernel):
                 assert _build.LAUNCHES["splice_admit"] > 0, _build.LAUNCHES
     finally:
         zs.close()
+
+
+# MLA widths at which head_dim (32), qk_nope + qk_rope (24 + 8) and
+# v_head_dim (40) all differ
+MLA = dict(qk_nope_dim=24, qk_rope_dim=8, v_head_dim=40, kv_lora_rank=48)
+
+
+@pytest.mark.parametrize("arch", ["deepseekv2-lite", "deepseek-v2-236b"])
+def test_mla_layer_on_card(cuda, arch):
+    """One MLA attention layer on the card against the same layer on the
+    CPU (``mla_forward`` with its latent cache, ``mla_decode`` and
+    ``mla_decode_rows`` absorbed and plain): both sum in f32 in other
+    orders and round to bf16 once before the bf16 output product, so they
+    agree to 2^-7 of the largest |output|; absorbed and plain agree on the
+    card to the same bound.  No TF32."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import attention as attn_lib
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_smoke_config(arch, n_layers=1, **MLA)
+    g = torch.Generator().manual_seed(0)
+    p = attn_lib.init_attn(g, cfg, "cpu")
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    B, T = 4, 16
+    x = torch.randn((B, 1, cfg.d_model), generator=g).to(torch.bfloat16)
+    xs = torch.randn((2, T, cfg.d_model), generator=g).to(torch.bfloat16)
+    cache = {"ckv": torch.randn((B, T, cfg.kv_lora_rank),
+                                generator=g).to(torch.bfloat16),
+             "k_rope": torch.randn((B, T, cfg.qk_rope_dim),
+                                   generator=g).to(torch.bfloat16)}
+
+    def close(a, b):
+        a, b = a.float().cpu(), b.float().cpu()
+        assert a.shape == b.shape
+        assert (a - b).abs().max() <= GEMM_REL_TOL * b.abs().max()
+
+    pos = torch.arange(T)[None].expand(2, T)
+    y, c = attn_lib.mla_forward(p, xs, cfg, pos, return_cache=True)
+    yc, cc = attn_lib.mla_forward(pc, xs.to(cuda), cfg, pos.to(cuda),
+                                  return_cache=True)
+    close(yc, y)
+    for name in c:
+        close(cc[name], c[name])
+    positions = torch.tensor([3, 9, 0, 15])
+    outs = {}
+    for absorb in (True, False):
+        for rows in (False, True):
+            host = {k: v.clone() for k, v in cache.items()}
+            card = {k: v.to(cuda, copy=True) for k, v in cache.items()}
+            if rows:
+                want, _ = attn_lib.mla_decode_rows(p, x, cfg, host, positions,
+                                                   absorb=absorb)
+                got, _ = attn_lib.mla_decode_rows(pc, x.to(cuda), cfg, card,
+                                                  positions.to(cuda),
+                                                  absorb=absorb)
+            else:
+                want, _ = attn_lib.mla_decode(p, x, cfg, host, 7,
+                                              absorb=absorb)
+                got, _ = attn_lib.mla_decode(pc, x.to(cuda), cfg, card, 7,
+                                             absorb=absorb)
+            close(got, want)
+            for name in host:
+                close(card[name], host[name])
+            outs[absorb, rows] = got
+    for rows in (False, True):
+        close(outs[True, rows], outs[False, rows])
+
+
+def test_mla_device_slab_step_on_card(cuda, tmp_path):
+    """deepseekv2-lite at smoke size on the card (a dense first layer, two
+    MoE layers, latent KV): ``decode_step`` over device slabs and the
+    ragged FFN, then ``decode_rows`` under continuous batching; the
+    ragged path's three kernels launch in each, the logits match the
+    resident model on the card within 2% of the largest |logit|, and the
+    latent page pool returns to 0 bytes."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.store import build_store
+    from repro_torch.models import decode_step, init_cache, init_params
+    from repro_torch.serving.server import BatchServer
+    from repro_torch.serving.zipserve import ZipServer
+    cfg = get_smoke_config("deepseekv2-lite", n_layers=3, **MLA)
+    params = init_params(cfg, seed=0, device=cuda)
+    build_store(params, cfg, str(tmp_path), device=cuda)
+    pools = {"F": 2, "C": 2, "S": 2, "E": 2}
+    zs = ZipServer(params, cfg, str(tmp_path), L=2, device_cache=True,
+                   pool_sizes=pools, device=cuda)
+    try:
+        B = 2
+        caches, rcache = zs.init_cache(B, 4), init_cache(cfg, B, 4, cuda)
+        assert caches[0]["kv"]["ckv"].shape == (B, 4, cfg.kv_lora_rank)
+        tok = torch.zeros((B, 1), dtype=torch.long, device=cuda)
+        _build.reset_launches()
+        for i in range(4):
+            lg, caches = zs.decode_step(tok, caches, i)
+            rl, rcache = decode_step(params, cfg, tok, rcache, i)
+            err = (lg.float() - rl.float()).abs().max().item()
+            assert err <= 0.02 * rl.float().abs().max().item(), (i, err)
+            tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+        torch.cuda.synchronize()
+        assert all(_build.LAUNCHES[k] > 0 for k in
+                   ("splice", "splice_admit", "slab_gemm")), _build.LAUNCHES
+    finally:
+        zs.close()
+    zs = ZipServer(params, cfg, str(tmp_path), L=2, device_cache=True,
+                   pool_sizes=pools, device=cuda)
+    try:
+        srv = BatchServer(None, cfg, max_batch=3, max_len=16, zip_server=zs,
+                          max_concurrency=3, page_size=4)
+        rng = np.random.default_rng(0)
+        for n in (3, 6, 4, 5):
+            srv.submit(rng.integers(0, cfg.vocab_size, n), 4)
+        _build.reset_launches()
+        done = srv.run()
+        torch.cuda.synchronize()
+        assert len(done) == 4 and all(
+            len(r.output) == 4 and r.error is None for r in done)
+        assert srv.pool.used_bytes() == 0
+        assert srv.pool._paged[0]["kv"]["ckv"].is_cuda
+        assert srv.pool.page_nbytes() == cfg.n_layers * (
+            cfg.kv_lora_rank + cfg.qk_rope_dim) * 2 * 4
+        assert all(_build.LAUNCHES[k] > 0 for k in
+                   ("splice", "splice_admit", "slab_gemm")), _build.LAUNCHES
+    finally:
+        zs.close()

@@ -124,19 +124,17 @@ def test_seeded_host_sync_is_flagged(kind):
     assert host_syncs(_snippet(BAD_SNIPPETS[kind], flag="")) == []
 
 
-def test_decode_rows_adds_no_host_sync(tmp_path, monkeypatch):
-    """At run time, ``decode_rows`` copies to the host exactly what
-    ``decode_step`` copies on the same server (the router's choice, once
-    per MoE layer): the per-request accounting reuses that copy."""
+def _count_host_copies(monkeypatch, tmp_path, cfg):
+    """The tensor host-copy calls of one ``decode_step`` and one
+    ``decode_rows`` on the same device-cache server over `cfg`, and the
+    server (closed)."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_smoke_config
     from repro_torch.core.store import build_store
     from repro_torch.models import init_params
     from repro_torch.serving.zipserve import ZipServer
 
-    cfg = get_smoke_config("qwen2-moe-a2.7b", n_layers=2)
     params = init_params(cfg, seed=0, device="cpu")
     build_store(params, cfg, str(tmp_path), device="cpu")
     zs = ZipServer(params, cfg, str(tmp_path), L=2, device_cache=True,
@@ -157,8 +155,39 @@ def test_decode_rows_adds_no_host_sync(tmp_path, monkeypatch):
         calls.clear()
         zs.decode_rows(tok, zs.init_cache(2, 4), np.asarray([0, 2]),
                        owners=[1, 2])
-        assert sorted(calls) == step_calls, (calls, step_calls)
-        assert step_calls.count("cpu") == 2 * len(zs._moe_layers)
-        assert zs.request_summary()[1]["steps"] == 1
+        return step_calls, sorted(calls), zs
     finally:
         zs.close()
+
+
+def test_decode_rows_adds_no_host_sync(tmp_path, monkeypatch):
+    """At run time, ``decode_rows`` copies to the host exactly what
+    ``decode_step`` copies on the same server (the router's choice, once
+    per MoE layer): the per-request accounting reuses that copy."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config("qwen2-moe-a2.7b", n_layers=2)
+    step_calls, rows_calls, zs = _count_host_copies(monkeypatch, tmp_path,
+                                                    cfg)
+    assert rows_calls == step_calls, (rows_calls, step_calls)
+    assert step_calls.count("cpu") == 2 * len(zs._moe_layers)
+    assert zs.request_summary()[1]["steps"] == 1
+
+
+def test_mla_decode_adds_no_host_sync(tmp_path, monkeypatch):
+    """The MLA family (a dense first layer, latent KV): the same host
+    copies as the GQA family's, one per MoE layer's router choice, in
+    ``decode_step`` and ``decode_rows`` alike; and the MLA decode
+    functions are under the static check."""
+    from repro_torch.configs import get_smoke_config
+
+    names = {f"{p.relative_to(PKG)}:{n}" for p in _sources()
+             for n, _ in hot_functions(p.read_text())}
+    assert {"models/attention.py:mla_decode",
+            "models/attention.py:mla_decode_rows"} <= names
+    cfg = get_smoke_config("deepseekv2-lite", n_layers=3)
+    step_calls, rows_calls, zs = _count_host_copies(monkeypatch, tmp_path,
+                                                    cfg)
+    assert zs._moe_layers == [1, 2]
+    assert rows_calls == step_calls, (rows_calls, step_calls)
+    assert step_calls.count("cpu") == 2 * len(zs._moe_layers)

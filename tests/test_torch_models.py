@@ -29,7 +29,7 @@ from repro_torch.models import decode_step, init_cache
 from repro_torch.models.moe import route
 
 MAX_REL, MEAN_REL = 0.02, 0.005
-_SMALL = {"scale", "q_norm", "k_norm"}          # norm scales: ones
+_SMALL = {"scale", "q_norm", "k_norm", "kv_norm"}   # norm scales: ones
 # embed and lm head as the JAX init; the router 10x the JAX init, so the
 # top-k margins sit far above bf16 noise and a test compares arithmetic,
 # not the luck of near-ties (at 0.02 the 8 smoke experts' probabilities
@@ -58,11 +58,13 @@ def numpy_params(jcfg, seed: int = 0):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
-def both_params(n_layers: int = 2, seed: int = 0):
-    """(JAX config, JAX params, port config, port params) of the smoke
-    qwen2-moe-a2.7b, the same numbers in both packages."""
-    jcfg = ref_smoke_config("qwen2-moe-a2.7b", n_layers=n_layers)
-    cfg = get_smoke_config("qwen2-moe-a2.7b", n_layers=n_layers)
+def both_params(n_layers: int = 2, seed: int = 0,
+                arch: str = "qwen2-moe-a2.7b", **overrides):
+    """(JAX config, JAX params, port config, port params) of `arch`'s smoke
+    config (qwen2-moe-a2.7b by default), the same numbers in both packages.
+    `overrides` replace smoke widths (e.g. MLA's ``qk_nope_dim``)."""
+    jcfg = ref_smoke_config(arch, n_layers=n_layers, **overrides)
+    cfg = get_smoke_config(arch, n_layers=n_layers, **overrides)
     jparams = numpy_params(jcfg, seed)
     params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
                              device="cpu")
