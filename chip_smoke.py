@@ -117,8 +117,46 @@ failure exits non-zero:
 
    Both paths must launch the splice, the splice-admit and the ragged
    GEMM.
-6. One JSON line with each kernel's launches on its path, error, times and
-   bound; then the result line.
+6. The SSM and hybrid families, and the dense GQA configs:
+   jamba-v0.1-52b with every width as published (d_model 4096; Mamba2
+   d_inner 8192, 128 heads x 64, state 16; 32 heads / 8 KV x 128 with no
+   positional encoding; 16 experts top-2 of d_expert 14336; dense d_ff
+   14336), depth cut 32 -> 4 (Mamba2 at 0-2, attention at 3, MoE at 1 and
+   3, dense MLPs at 0 and 2), seeded random weights.  Phase 6 first runs
+   the checks of the other configs on the card: mamba2-370m's SSD prefill
+   of 512 tokens (two 256-token chunks) against 512 single decode steps
+   at full width and depth, in f32 and
+   bf16, each within its stated tolerance; qwen3-14b (qk-norm) and
+   starcoder2-3b (LayerNorm + GELU) at full width, depth 2, resident:
+   ``prefill(S-1)`` + ``decode_step`` against ``forward(S)``, logits
+   finite.  Then jamba's store (11.98 GB of bf16, zlib at level 1 where
+   the other stores take the default level 9) is built, loaded back
+   bit-exactly and served:
+
+   * ``jamba-ragged``: as ``mla-ragged`` with 4 greedy tokens, against the
+     resident model under teacher forcing;
+   * ``jamba-continuous``: the serving phase's first 4 requests through
+     ``BatchServer`` over ``decode_rows``, at most 2 at once, so later
+     requests take slots earlier ones held: the pool returns to 0 bytes
+     and holds exactly the Mamba2 layers' state and conv ring per slot and
+     the attention layer's K/V per page; each request against the
+     resident model fed its prompt one decode step per token; the last
+     request (in a recycled slot) against itself alone on a fresh server:
+     routes, then logits within 2% and tokens where decided;
+   * ``jamba-resident``: the same requests through the resident
+     ``BatchServer`` (SSD prefill + decode).
+
+   Both served paths must launch the splice, the splice-admit and the
+   ragged GEMM.  mamba2-370m at full width and depth: its store (the SSM
+   projections of every layer, 604 MB of bf16) loaded back bit-exactly,
+   ``ZipServer.decode_step`` bit-identical to the resident model with no
+   kernel launched, and the resident ``BatchServer`` over the serving
+   traffic.  Last, the CLI with ``--arch jamba-v0.1-52b``.  Phase 2 also
+   times kernels 1-3 at jamba's expert shapes (d 4096, f 14336, 4 tokens
+   x top-2) against their plain versions, each with its bound.
+7. One JSON line with each kernel's launches on its path, error, times and
+   bound; then the result line.  Each phase's wall time is printed as it
+   ends.
 """
 from __future__ import annotations
 
@@ -181,6 +219,8 @@ PATH_KERNELS = {
     "continuous": ("splice", "splice_admit", "slab_gemm"),
     "mla-ragged": ("splice", "splice_admit", "slab_gemm"),
     "mla-continuous": ("splice", "splice_admit", "slab_gemm"),
+    "jamba-ragged": ("splice", "splice_admit", "slab_gemm"),
+    "jamba-continuous": ("splice", "splice_admit", "slab_gemm"),
 }
 # phase 5: deepseekv2-lite, every width as published, depth 27 -> 3 (one
 # dense layer, two MoE layers, so the cross-layer prefetch stays real)
@@ -193,6 +233,41 @@ MLA_LAYERS = 3
 MLA_ABSORB_REL_TOL = 2.0 ** -7
 MLA_CHECK_POSITIONS = (5, 63, 20, 40)       # B = 4 rows' positions
 MLA_CHECK_T = 64
+# phase 6: jamba-v0.1-52b, every width as published, depth 32 -> 4 (layers
+# 0-3: Mamba2 at 0-2, attention at 3, MoE at 1 and 3, dense MLPs at 0 and
+# 2: the shallowest cut that keeps an attention layer and two MoE layers)
+JAMBA_ARCH = "jamba-v0.1-52b"
+JAMBA_LAYERS = 4
+# jamba's store (11.98 GB of bf16) is compressed with zlib at level 1: at
+# the default level 9 its exponent planes compress at ~28 MB/s of bf16 on
+# the 8 host cores (412-432 s, ratio 0.6888, on the H100's host), most of
+# the script's 1200 s.  The manifest records "zlib" either way, and
+# decompression does not depend on the level
+JAMBA_ZLIB_LEVEL = 1
+# jamba-ragged decodes 4 tokens, not 8: a step reconstructs ~13 experts of
+# 352 MB (6.4-8.6 s a step on the H100), and the script must stay well
+# inside its 1200 s
+JAMBA_NEW_TOKENS = 4
+# jamba-continuous serves the first 4 of the serving traffic's requests, at
+# most 2 at once (all 8, at most 4 at once, took 136 s on the H100);
+# requests 3 and 4 run in slots 1 and 2 held
+JAMBA_REQUESTS = 4
+JAMBA_CONCURRENCY = 2
+# mamba2-370m at every width and depth (48 layers); its SSD prefill of two
+# 256-token chunks against as many single decode steps.  In f32 the two
+# compute one function in other orders (1.5e-5 of max |logit| on the
+# H100): allow 1e-3.  In bf16 the prefill's conv rounds each product to
+# bf16 where decode sums in f32, as the JAX package does, and the
+# difference grows through 48 layers (7.7% on the H100): allow 0.15, a
+# check of the state handed across the chunk boundary, not of rounding
+MAMBA_ARCH = "mamba2-370m"
+MAMBA_PREFILL = 512
+MAMBA_F32_REL_TOL = 1e-3
+MAMBA_BF16_REL_TOL = 0.15
+# the dense GQA configs, every width as published, resident, depth cut to 2
+DENSE_ARCHS = ("qwen3-14b", "starcoder2-3b")
+DENSE_LAYERS = 2
+DENSE_SEQ = 16
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12     # dense bf16 tensor-core peak
 # ragged GEMM vs its f32 plain version: both sum in f32 but in another
@@ -304,6 +379,62 @@ def bound(nbytes: float, flops: float):
 # ----------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ----------------------------------------------------------------------------
+def ragged_gemm_rows(torch, dev, timed, g, d, f, n_e, ts, make_x, what):
+    """The slot-indexed ragged GEMM over the 8-row tiles of slot vector
+    `ts` against a stack of `n_e` experts, gate/up ([d] -> [f]) then down
+    ([f] -> [d]) with ``make_x(K)`` the rows: each held against its plain
+    version (GEMM_REL_TOL), then the pair timed with `timed` beside the
+    plain version and ``torch.bmm`` over the gathered slots.  Returns the
+    pair's numbers and its bound from these inputs."""
+    from repro_torch.kernels import _build, moe_gemm, ref
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    T = ts.size * 8
+    out = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "max_abs_err": 0.0}
+    flops = nbytes = 0.0
+    for (dd, ff) in ((d, f), (f, d)):           # gate/up, then down
+        x = make_x(dd)
+        wb = (torch.randn((n_e, dd, ff), device=dev, generator=g)
+              * 0.02).to(torch.bfloat16)
+        k = moe_gemm.slab_ragged_gemm(x, wb, ts).float()
+        r = ref.slab_gemm_ref(x, wb, ts).float()
+        err = (k - r).abs().max().item()
+        scale = r.abs().max().item()
+        check(err <= GEMM_REL_TOL * scale,
+              f"{what} [{dd}->{ff}] error {err} > {GEMM_REL_TOL} x {scale}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        ts_d = torch.from_numpy(ts).to(dev)
+        ts_l = ts_d.long()
+        o = torch.empty((T, ff), dtype=torch.bfloat16, device=dev)
+        # sa keeps the bounds and scratch alive for the raw pointers in
+        # sargs, taken once so that the timed calls hold no Python work
+        sa = moe_gemm.split_args(T // 8, dd, ff, dev)
+        sargs = sa.args
+        ms, hms = timed(lambda: lib.zipmoe_slab_gemm(
+            x.data_ptr(), wb.data_ptr(), ts_d.data_ptr(), o.data_ptr(),
+            T // 8, dd, ff, dd * ff, *sargs, stream))
+        out["ms"] += ms
+        out["host_ms"] += hms
+        # the slots as a device tensor: from numpy the plain version would
+        # copy them to the card and synchronise on every call
+        out["plain_ms"] += timed(lambda: ref.slab_gemm_ref(x, wb, ts_l))[0]
+        out["library_ms"] += timed(lambda: torch.bmm(
+            x.view(T // 8, 8, dd), wb.index_select(0, ts_l)))[0]
+        distinct = len(set(ts.tolist()))
+        nbytes += 2.0 * T * dd + 2.0 * distinct * dd * ff + 4 * ts.size \
+            + 2.0 * T * ff
+        flops += 2.0 * T * dd * ff
+        print(f"{what} [{T}, {dd}] x slab[{n_e}, {dd}, {ff}] "
+              f"({len(sa.bounds) - 1} contraction slices): max abs err "
+              f"{err:.3g} (max |out| {scale:.3g}, tolerance "
+              f"{GEMM_REL_TOL:.3g} x max |out|)", flush=True)
+        del wb
+    out["bound_ms"], out["bound_by"] = bound(nbytes, flops)
+    out["shape"] = [T, d, f, "+", T, f, d]
+    return out
+
+
 def kernel_phase(torch, np, dev, cfg):
     from repro_torch.core import bitfield
     from repro_torch.kernels import _build, moe_gemm, recovery, ref
@@ -445,60 +576,22 @@ def kernel_phase(torch, np, dev, cfg):
     # a decode step of 4 tokens x top-4: 16 (token, expert) pairs, one
     # 8-row tile each; here 14 distinct slots, a repeated slot and a pad
     # tile, against a stack of 16 experts
-    n_e = 16
     ts = np.asarray(list(range(14)) + [3, 0], np.int32)
-    T = ts.size * 8
-    errs, times = [], {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0,
-                       "library_ms": 0.0}
-    flops = nbytes = 0.0
-    for (dd, ff) in ((d, f), (f, d)):           # gate/up, then down
-        x = torch.randn((T, dd), device=dev, generator=g).to(torch.bfloat16)
+
+    def main_rows(dd):
+        x = torch.randn((ts.size * 8, dd), device=dev, generator=g).to(
+            torch.bfloat16)
         x[8:16] = 0                              # a singleton group
         x[9] = torch.randn((dd,), device=dev, generator=g).to(torch.bfloat16)
         x[-8:] = 0                               # the pad tile
-        wb = (torch.randn((n_e, dd, ff), device=dev, generator=g)
-              * 0.02).to(torch.bfloat16)
-        k = moe_gemm.slab_ragged_gemm(x, wb, ts).float()
-        r = ref.slab_gemm_ref(x, wb, ts).float()
-        err = (k - r).abs().max().item()
-        scale = r.abs().max().item()
-        check(err <= GEMM_REL_TOL * scale,
-              f"ragged GEMM [{dd}->{ff}] error {err} > "
-              f"{GEMM_REL_TOL} x {scale}")
-        errs.append(err)
-        ts_d = torch.from_numpy(ts).to(dev)
-        ts_l = ts_d.long()
-        o = torch.empty((T, ff), dtype=torch.bfloat16, device=dev)
-        # sa keeps the bounds and scratch alive for the raw pointers in
-        # sargs, taken once so that the timed calls hold no Python work
-        sa = moe_gemm.split_args(T // 8, dd, ff, dev)
-        sargs = sa.args
-        ms, hms = timed(lambda: lib.zipmoe_slab_gemm(
-            x.data_ptr(), wb.data_ptr(), ts_d.data_ptr(), o.data_ptr(),
-            T // 8, dd, ff, dd * ff, *sargs, stream))
-        times["ms"] += ms
-        times["host_ms"] += hms
-        # the slots as a device tensor: from numpy the plain version would
-        # copy them to the card and synchronise on every call
-        times["plain_ms"] += timed(lambda: ref.slab_gemm_ref(x, wb, ts_l))[0]
-        times["library_ms"] += timed(lambda: torch.bmm(
-            x.view(T // 8, 8, dd), wb.index_select(0, ts_l)))[0]
-        distinct = len(set(ts.tolist()))
-        nbytes += 2.0 * T * dd + 2.0 * distinct * dd * ff + 4 * ts.size \
-            + 2.0 * T * ff
-        flops += 2.0 * T * dd * ff
-        print(f"ragged GEMM [{T}, {dd}] x slab[{n_e}, {dd}, {ff}]: max abs "
-              f"err {err:.3g} (max |out| {scale:.3g}, tolerance "
-              f"{GEMM_REL_TOL:.3g} x max |out|)", flush=True)
-        del wb
-    bms, by = bound(nbytes, flops)
+        return x
+
     res["slab_gemm"] = dict(
         name="slab_gemm", route="cuda",
         source="src/repro_torch/kernels/csrc/moe_gemm.cu",
         replaces="src/repro/kernels/moe_gemm.py:123",
-        max_abs_err=max(errs), ms=times["ms"], host_ms=times["host_ms"],
-        plain_ms=times["plain_ms"], bound_ms=bms, bound_by=by, library_ms=times["library_ms"],
-        shape=[T, d, f, "+", T, f, d])
+        **ragged_gemm_rows(torch, dev, timed, g, d, f, 16, ts, main_rows,
+                           "ragged GEMM"))
 
     # -- grouped and fused GEMMs at the main path's shapes ------------------
     # a decode step's padded batch: 16 active experts x C = 8 rows (4
@@ -657,6 +750,109 @@ def kernel_phase(torch, np, dev, cfg):
         "copy_yardstick_ms": copy_ms, "copy_into_slot_ms": copy_slot_ms,
         "empty_kernel_ms": launch_ms, "ptxas": ptxas_usage(_build)}),
         flush=True)
+    return res
+
+
+def jamba_kernel_shapes(torch, np, dev):
+    """Kernels 1-3 at jamba-v0.1-52b's expert shapes (d 4096, f 14336; a
+    decode step of 4 tokens x top-2), each against its plain version and
+    timed with ``med_ms`` beside its plain version and its bound: the
+    splice of one 58.7 M-element tensor, the splice-admit into slot 5 of
+    an 8-slot slab (2.82 GB), and the ragged GEMM over 8 (token, expert)
+    pairs, one 8-row tile each, against a 16-expert stack (gate/up, then
+    down with K = 14336).  Returns each kernel's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import bitfield
+    from repro_torch.kernels import _build, moe_gemm, recovery, ref
+    lib = _build.library()
+    cfg = get_config(JAMBA_ARCH)
+    d, f, n_e = cfg.d_model, cfg.d_expert, cfg.n_experts
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rate = sleep_rate(torch)
+    stream = torch.cuda.current_stream().cuda_stream
+    res, it = {}, [0]
+
+    def timed(fn):
+        return med_ms(fn, torch, rate)
+
+    n_sets = 4     # 470 MB of planes, far past the L2
+    sets = [(torch.randint(0, 256, (d * f,), dtype=torch.uint8, device=dev,
+                           generator=g),
+             torch.randint(0, 256, (d * f,), dtype=torch.uint8, device=dev,
+                           generator=g)) for _ in range(n_sets)]
+    e, s = sets[0]
+    check(torch.equal(recovery.recover_bf16(e, s).view(torch.int16),
+                      ref.recover_bf16_ref(e, s).view(torch.int16)),
+          f"splice [{d}, {f}] not bit-exact against its plain version")
+    out = torch.empty(d * f, dtype=torch.bfloat16, device=dev)
+
+    def splice_k():
+        a, b = sets[it[0] % n_sets]
+        it[0] += 1
+        lib.zipmoe_splice(a.data_ptr(), b.data_ptr(), out.data_ptr(), d * f,
+                          stream)
+
+    def splice_p():
+        a, b = sets[it[0] % n_sets]
+        it[0] += 1
+        ref.recover_bf16_ref(a, b)
+
+    bms, by = bound(4.0 * d * f, 0.0)
+    ms, hms = timed(splice_k)
+    res["splice"] = dict(ms=ms, host_ms=hms, plain_ms=timed(splice_p)[0],
+                         bound_ms=bms, bound_by=by, max_abs_err=0.0,
+                         library_ms=None, shape=[d, f])
+
+    cap, slot = 8, 5
+    buf = torch.empty((cap, d, f), dtype=torch.bfloat16, device=dev)
+    buf.view(torch.int16).random_(generator=g)
+    w = (torch.randn((d, f), device=dev, generator=g) * 0.01).to(
+        torch.bfloat16)
+    e, s = bitfield.decompose(w)
+    moe_gemm.slab_splice_admit(buf, e, s, slot)
+    check(torch.equal(buf[slot].view(torch.int16), w.view(torch.int16)),
+          f"splice-admit into [{cap}, {d}, {f}] does not hold the spliced "
+          f"tensor")
+    del w, e, s
+
+    def admit_k():
+        a, b = sets[it[0] % n_sets]
+        it[0] += 1
+        lib.zipmoe_splice_admit(buf.data_ptr(), it[0] % cap, d * f,
+                                a.data_ptr(), b.data_ptr(), stream)
+
+    def admit_p():
+        a, b = sets[it[0] % n_sets]
+        it[0] += 1
+        buf[it[0] % cap] = ref.recover_bf16_ref(a, b).view(d, f)
+
+    ms, hms = timed(admit_k)
+    res["splice_admit"] = dict(ms=ms, host_ms=hms,
+                               plain_ms=timed(admit_p)[0], bound_ms=bms,
+                               bound_by=by, max_abs_err=0.0, library_ms=None,
+                               shape=[cap, d, f])
+    del buf, sets
+
+    # 4 tokens x top-2 = 8 (token, expert) pairs, one tile each; 7
+    # distinct experts (one chosen twice)
+    ts = np.asarray([0, 3, 5, 9, 12, 14, 15, 3], np.int32)
+
+    def one_row_per_tile(dd):
+        x = torch.zeros((ts.size * 8, dd), dtype=torch.bfloat16, device=dev)
+        x[::8] = torch.randn((ts.size, dd), device=dev, generator=g).to(
+            torch.bfloat16)
+        return x
+
+    res["slab_gemm"] = ragged_gemm_rows(torch, dev, timed, g, d, f, n_e, ts,
+                                        one_row_per_tile,
+                                        "jamba shapes: ragged GEMM")
+    for name, r in res.items():
+        print(f"jamba shapes: {name} {r['ms']:.6g} ms on the device (plain "
+              f"{r['plain_ms']:.6g} ms), bound {r['bound_ms']:.6g} ms "
+              f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.4g} of the "
+              f"bound; the host takes {r['host_ms']:.6g} ms to enqueue one",
+              flush=True)
+    print(json.dumps({"kernels_at_jamba_shapes": res}), flush=True)
     return res
 
 
@@ -1070,17 +1266,19 @@ def main_path(torch, np, dev, cfg, store_dir):
 # phase 3, the serving front end
 # ----------------------------------------------------------------------------
 def serve_requests(torch, cfg, prompts, arrivals, max_len, *, params=None,
-                   zs=None, continuous=True, count=False):
-    """One BatchServer run of `prompts` (greedy, each recording its logits);
-    with `count` the launch counters are reset just before ``run()`` and
-    read just after it (prefetch jobs drained first).  Returns the server,
-    its finished requests in rid order, launches, and the wall seconds and
-    device memory (allocated before, peak) of the run."""
+                   zs=None, continuous=True, count=False,
+                   concurrency=SERVE_CONCURRENCY):
+    """One BatchServer run of `prompts` (greedy, each recording its logits,
+    at most `concurrency` at once); with `count` the launch counters are
+    reset just before ``run()`` and read just after it (prefetch jobs
+    drained first).  Returns the server, its finished requests in rid
+    order, launches, and the wall seconds and device memory (allocated
+    before, peak) of the run."""
     from repro_torch.kernels import _build
     from repro_torch.serving.server import BatchServer
     srv = BatchServer(params if zs is None else None, cfg,
-                      max_batch=SERVE_CONCURRENCY, max_len=max_len,
-                      zip_server=zs, max_concurrency=SERVE_CONCURRENCY,
+                      max_batch=concurrency, max_len=max_len,
+                      zip_server=zs, max_concurrency=concurrency,
                       continuous=continuous)
     for p, a in zip(prompts, arrivals):
         srv.submit(p, SERVE_NEW_TOKENS, arrival_s=a, record_logits=True)
@@ -1816,8 +2014,388 @@ def mla_phase(torch, np, dev):
     return launches, numbers
 
 
+# ----------------------------------------------------------------------------
+# phase 6: the SSM and hybrid families (jamba-v0.1-52b, mamba2-370m) and
+# the dense GQA configs
+# ----------------------------------------------------------------------------
+def recycled_solo_check(np, cont, solo, cont_routes, solo_routes, what):
+    """A request served in a recycled slot of the continuous run (`cont`)
+    against the same request alone on a fresh server (`solo`): routes
+    compared per MoE layer and position; before the first position whose
+    routes differ, logits within LOGIT_REL_TOL of the largest |logit| and
+    tokens equal wherever the logits decide them.  Fails unless at least
+    half of the outputs are compared."""
+    S, N = len(cont.prompt), len(cont.output)
+    first_flip = S + N
+    for layer, mine in cont_routes.items():
+        theirs = solo_routes[layer]
+        for s_, (a, b) in enumerate(zip(mine, theirs)):
+            if a != b:
+                first_flip = min(first_flip, s_)
+                break
+    worst, compared, decided = 0.0, 0, 0
+    for t, (x, y) in enumerate(zip(cont.logits, solo.logits)):
+        if S - 1 + t >= first_flip:
+            break
+        diff = float(np.abs(x - y).max())
+        scale = float(np.abs(y).max())
+        worst = max(worst, diff / scale)
+        check(diff <= LOGIT_REL_TOL * scale,
+              f"{what}: request {cont.rid} output {t} differs from the "
+              f"request alone by {diff} (> {LOGIT_REL_TOL} x {scale})")
+        top = np.sort(y)[::-1]
+        if top[0] - top[1] > 2 * diff:
+            decided += 1
+            check(cont.output[t] == solo.output[t],
+                  f"{what}: request {cont.rid} token {t} differs from the "
+                  f"request alone where the logits decide it")
+        compared += 1
+    bits = all(np.array_equal(x, y) for x, y in zip(cont.logits,
+                                                   solo.logits))
+    print(f"{what}: request {cont.rid} (S={S}, a recycled slot) against "
+          f"itself alone: first route difference at position "
+          f"{first_flip if first_flip < S + N else None}; {compared}/{N} "
+          f"outputs compared, max |diff| / max |logit| = {worst:.4g} "
+          f"(tolerance {LOGIT_REL_TOL}), {decided} decided tokens equal; "
+          f"logits bit-identical {bits}; tokens equal "
+          f"{cont.output == solo.output}", flush=True)
+    check(2 * compared >= N, f"{what}: only {compared} of {N} outputs "
+          f"routed identically to the request alone")
+    return {"rid": cont.rid, "first_route_difference": first_flip,
+            "outputs_compared": compared, "max_rel_diff": worst,
+            "decided_equal": decided, "bit_identical": bits,
+            "tokens_equal": cont.output == solo.output}
+
+
+def mamba_prefill_check(torch, np, dev, cfg, dtype: str):
+    """mamba2's SSD prefill of MAMBA_PREFILL tokens (two chunks) against
+    MAMBA_PREFILL single decode steps from the zero state, every layer at
+    once, on seeded random weights in `dtype`.  Returns max |diff| / max
+    |logit| over every position and the share of equal greedy tokens."""
+    from repro_torch.models import decode_step, init_cache, init_params
+    from repro_torch.models import prefill
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    params = init_params(cfg, seed=SEED, device=dev)
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (1, MAMBA_PREFILL))).to(dev)
+    t0 = time.perf_counter()
+    lg, _ = prefill(params, cfg, toks)
+    torch.cuda.synchronize()
+    pf_s = time.perf_counter() - t0
+    caches = init_cache(cfg, 1, MAMBA_PREFILL, device=dev)
+    worst = torch.zeros((), device=dev)
+    agree = torch.zeros((), dtype=torch.long, device=dev)
+    t0 = time.perf_counter()
+    for i in range(MAMBA_PREFILL):
+        step, caches = decode_step(params, cfg, toks[:, i:i + 1], caches, i)
+        worst = torch.maximum(worst, (step[0, 0].float()
+                                      - lg[0, i].float()).abs().max())
+        agree += (step[0, 0].argmax() == lg[0, i].argmax()).long()
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(lg).all()), f"mamba2 {dtype}: non-finite "
+          f"prefill logits")
+    rel = worst.item() / lg.float().abs().max().item()
+    share = agree.item() / MAMBA_PREFILL
+    tol = MAMBA_F32_REL_TOL if dtype == "float32" else MAMBA_BF16_REL_TOL
+    print(f"mamba2 prefill vs decode ({dtype}): SSD prefill of "
+          f"{MAMBA_PREFILL} tokens ({MAMBA_PREFILL // cfg.ssm_chunk} chunks "
+          f"of {cfg.ssm_chunk}) in {pf_s:.3f} s against {MAMBA_PREFILL} "
+          f"decode steps in {dec_s:.3f} s: max |diff| / max |logit| = "
+          f"{rel:.4g} (tolerance {tol}), greedy tokens equal at "
+          f"{share:.4g} of positions", flush=True)
+    check(rel <= tol, f"mamba2 {dtype}: prefill and step-by-step decode "
+          f"differ by {rel} of max |logit| (> {tol})")
+    del params, lg, caches
+    return {"max_rel_diff": rel, "token_share": share, "prefill_s": pf_s,
+            "decode_s": dec_s}
+
+
+def dense_check(torch, np, dev, arch: str):
+    """`arch` at every published width, depth cut to DENSE_LAYERS,
+    resident: ``prefill`` of S - 1 tokens then one ``decode_step`` against
+    ``forward`` of all S, on seeded random weights.  Returns max |diff| /
+    max |logit| of the last position."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, forward, init_params
+    from repro_torch.models import prefill
+    from repro_torch.serving.kv_cache import grow_cache
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=DENSE_LAYERS)
+    params = init_params(cfg, seed=SEED, device=dev)
+    rng = np.random.default_rng(SEED)
+    S = DENSE_SEQ
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, S))
+                            ).to(dev)
+    want, _, _ = forward(params, cfg, toks)
+    _, caches = prefill(params, cfg, toks[:, :S - 1])
+    caches = grow_cache(cfg, caches, BATCH, S)
+    got, _ = decode_step(params, cfg, toks[:, S - 1:], caches, S - 1)
+    a, b = got[:, 0].float(), want[:, -1].float()
+    check(bool(torch.isfinite(a).all()) and bool(torch.isfinite(want).all()),
+          f"{arch}: non-finite logits")
+    rel = (a - b).abs().max().item() / b.abs().max().item()
+    check(rel <= LOGIT_REL_TOL, f"{arch}: prefill + decode_step differs "
+          f"from forward by {rel} of max |logit| (> {LOGIT_REL_TOL})")
+    print(f"dense {arch}: d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} KV x {cfg.head_dim}, d_ff {cfg.d_ff} "
+          f"({cfg.act}, {cfg.norm}, qk_norm {cfg.qk_norm}), vocab "
+          f"{cfg.vocab_size}; depth cut {full.n_layers} -> {DENSE_LAYERS}: "
+          f"prefill({S - 1}) + decode_step vs forward({S}) max |diff| / max "
+          f"|logit| = {rel:.4g} (tolerance {LOGIT_REL_TOL}), logits finite",
+          flush=True)
+    del params
+    return rel
+
+
+def mamba_phase(torch, np, dev, tmp):
+    """mamba2-370m at every published width and depth: its store (the SSM
+    projections of every layer, checked lossless), ``ZipServer.
+    decode_step`` against the resident model (no kernel may launch: there
+    is no routed expert), and the resident BatchServer over the serving
+    traffic.  Returns the phase's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.store import build_store
+    from repro_torch.models import decode_step, init_cache, init_params
+    from repro_torch.serving.zipserve import ZipServer
+    cfg = get_config(MAMBA_ARCH)
+    params = init_params(cfg, seed=SEED, device=dev)
+    numbers = {}
+    t0 = time.perf_counter()
+    store = build_store(params, cfg, tmp, device=dev)
+    numbers["build_store_s"] = time.perf_counter() - t0
+    numbers["store_ratio"] = store.ratio()
+    bf16 = sum(g.full_bytes for g in store.groups.values())
+    print(f"mamba2 build_store: {len(store.groups)} groups (the SSM "
+          f"projections w_z, w_x, w_out of each layer), {bf16} B of bf16, "
+          f"{numbers['build_store_s']:.1f} s, ratio "
+          f"{numbers['store_ratio']:.4f}", flush=True)
+    check_lossless(torch, store, params, cfg, dev)
+    store.close()
+    rng = np.random.default_rng(SEED)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, 1))
+                              ).to(dev)
+    zs = ZipServer(params, cfg, tmp, L=6, prefetch=True, device=dev,
+                   pool_sizes=POOLS_SMALL, device_cache=True,
+                   ffn_impl="ragged")
+    try:
+        run = serve(torch, zs, prompt, NEW_TOKENS, NEW_TOKENS + 1)
+    finally:
+        zs.close()
+    check(not any(run["launches"].values()),
+          f"mamba2: kernels launched with no routed expert: "
+          f"{run['launches']}")
+    rcache = init_cache(cfg, BATCH, NEW_TOKENS + 1, device=dev)
+    same = True
+    for i, (inp, lg) in enumerate(zip(run["inputs"], run["logits"])):
+        rl, rcache = decode_step(params, cfg, inp, rcache, i)
+        check(bool(torch.isfinite(lg).all()), f"mamba2: non-finite logits "
+              f"at step {i}")
+        same = same and torch.equal(lg.view(torch.int16),
+                                    rl.view(torch.int16))
+    check(same, "mamba2: ZipServer.decode_step differs from the resident "
+          "model although both run the same layers")
+    numbers["zipserver"] = {"tpot_ms": statistics.mean(run["times"][1:])
+                            * 1e3, "launches": run["launches"],
+                            "bit_identical_to_resident": same}
+    print(f"mamba2 zipserver: TPOT {numbers['zipserver']['tpot_ms']:.4f} ms "
+          f"(batch {BATCH}, {NEW_TOKENS} tokens), logits bit-identical to "
+          f"the resident model: {same}, launches {run['launches']}",
+          flush=True)
+    lens, prompts, max_len = serving_traffic(np, cfg)
+    gc.collect()
+    srv, resident, _, served = serve_requests(
+        torch, cfg, prompts, SERVE_ARRIVALS, max_len, params=params,
+        continuous=False)
+    numbers["mamba2-resident"] = serving_numbers("mamba2-resident", srv,
+                                                 resident, served)
+    for r in resident:
+        check(len(r.output) == SERVE_NEW_TOKENS,
+              f"mamba2-resident request {r.rid}: {len(r.output)} tokens")
+    del params
+    return numbers
+
+
+def ssm_phase(torch, np, dev, store_dir):
+    """The checks of mamba2-370m's SSD prefill against step-by-step decode
+    (f32 and bf16) and of the dense configs; then jamba-v0.1-52b at every
+    published width, depth cut to JAMBA_LAYERS (Mamba2 mixers at 0-2,
+    attention at 3, MoE at 1 and 3, dense MLPs at 0 and 2): its store
+    built into `store_dir` with zlib at JAMBA_ZLIB_LEVEL and checked
+    lossless; ``jamba-ragged`` from an empty cache against the resident
+    model; ``jamba-continuous`` over ``decode_rows`` with SSM state in
+    recycled slots, one recycled request against itself alone;
+    ``jamba-resident``; mamba2-370m served (``mamba_phase``); the CLI with
+    ``--arch jamba-v0.1-52b``.  Returns each path's launches and the
+    phase's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.codec import ZlibCodec
+    from repro_torch.core.store import build_store
+    from repro_torch.models import init_params
+    from repro_torch.serving.zipserve import ZipServer
+    full = get_config(JAMBA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    moe = cfg_moe_layers(cfg)
+    kinds = ["attn" if cfg.attn_layer(i) else "mamba"
+             for i in range(cfg.n_layers)]
+    print(f"config {JAMBA_ARCH}: d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"/ {cfg.n_kv_heads} KV x {cfg.head_dim} (pos {cfg.pos}), Mamba2 "
+          f"d_inner {cfg.d_inner}, {cfg.ssm_heads} heads x "
+          f"{cfg.ssm_headdim}, state {cfg.ssm_state}, conv {cfg.ssm_conv}; "
+          f"{cfg.n_experts} experts top-{cfg.top_k}, d_expert "
+          f"{cfg.d_expert}, dense d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+          f"depth cut {full.n_layers} -> {JAMBA_LAYERS} layers (mixers "
+          f"{kinds}, MoE layers {moe})", flush=True)
+    launches, numbers = {}, {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = get_config(MAMBA_ARCH)
+    numbers["mamba2-prefill"] = {
+        dt: mamba_prefill_check(torch, np, dev, mcfg, dt)
+        for dt in ("float32", "bfloat16")}
+    numbers["dense"] = {arch: dense_check(torch, np, dev, arch)
+                        for arch in DENSE_ARCHS}
+    params = init_params(cfg, seed=SEED, device=dev)
+    t0 = time.perf_counter()
+    store = build_store(params, cfg, store_dir, device=dev,
+                        codec=ZlibCodec(JAMBA_ZLIB_LEVEL))
+    build_s = time.perf_counter() - t0
+    ratio = store.ratio()
+    bf16 = sum(g.full_bytes for g in store.groups.values())
+    print(f"jamba build_store: codec {store.codec.name} at level "
+          f"{JAMBA_ZLIB_LEVEL}, {len(store.groups)} groups, {bf16} B of "
+          f"bf16, {os.cpu_count()} threads, {build_s:.1f} s, ratio "
+          f"{ratio:.4f}", flush=True)
+    check_lossless(torch, store, params, cfg, dev)
+    store.close()
+    numbers.update(build_store_s=build_s, store_ratio=ratio,
+                   store_bf16_bytes=bf16, zlib_level=JAMBA_ZLIB_LEVEL)
+
+    def zip_server():
+        gc.collect()
+        return ZipServer(params, cfg, store_dir, L=6, prefetch=True,
+                         device=dev, pool_sizes=POOLS_SMALL,
+                         device_cache=True, ffn_impl="ragged")
+
+    # -- jamba-ragged: a batch of 4 greedy requests from an empty cache
+    rng = np.random.default_rng(SEED)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (BATCH, 1))).to(dev)
+    zs = zip_server()
+    try:
+        run = serve(torch, zs, prompt, JAMBA_NEW_TOKENS,
+                    JAMBA_NEW_TOKENS + 1)
+    finally:
+        zs.close()
+    launches["jamba-ragged"] = run["launches"]
+    nums = path_numbers(run, len(moe))
+    nums["splice_launches"] = run["launches"]["splice"] + \
+        run["launches"]["splice_admit"]
+    nums["logit_rel_err"] = check_resident(torch, np, dev, cfg, params,
+                                           run, "jamba-ragged")
+    numbers["jamba-ragged"] = nums
+    print(f"jamba-ragged: served {run['served'].tolist()}; TPOT "
+          f"{nums['tpot_ms']} ms, blocked {nums['blocked_ms']} ms per "
+          f"step, hit rate {nums['hit_rate']}, splice launches "
+          f"{run['launches']['splice']} + splice-admit "
+          f"{run['launches']['splice_admit']}; launches "
+          f"{run['launches']}; {json.dumps(nums)}", flush=True)
+    del run
+
+    # -- jamba-continuous: the serving traffic, slots recycled --------
+    lens, prompts, max_len = serving_traffic(np, cfg)
+    prompts = prompts[:JAMBA_REQUESTS]
+    arrivals = SERVE_ARRIVALS[:JAMBA_REQUESTS]
+    max_len = int(max(lens[:JAMBA_REQUESTS])) + SERVE_NEW_TOKENS
+    zs = zip_server()
+    try:
+        srv, cont, cl, served = serve_requests(
+            torch, cfg, prompts, arrivals, max_len, zs=zs, count=True,
+            concurrency=JAMBA_CONCURRENCY)
+        routes = served_routes(zs)
+    finally:
+        zs.close()
+    launches["jamba-continuous"] = cl
+    out = serving_numbers("jamba-continuous", srv, cont, served)
+    for r in cont:
+        check(r.error is None and len(r.output) == SERVE_NEW_TOKENS
+              and len(r.logits) == SERVE_NEW_TOKENS,
+              f"jamba-continuous request {r.rid}: {len(r.output)} "
+              f"tokens, error {r.error}")
+    check(srv.pool.used_bytes() == 0,
+          f"jamba-continuous: {srv.pool.used_bytes()} bytes still held")
+    slot_b, page_b = srv.pool.slot_nbytes(), srv.pool.page_nbytes()
+    c_width = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    want_slot = kinds.count("mamba") * (
+        cfg.ssm_heads * cfg.ssm_headdim * cfg.ssm_state * 4
+        + (cfg.ssm_conv - 1) * c_width * 2)
+    want_page = kinds.count("attn") * srv.pool.page_size * 2 \
+        * cfg.n_kv_heads * cfg.head_dim * 2
+    check(slot_b == want_slot and page_b == want_page,
+          f"jamba-continuous: slot {slot_b} B (expected {want_slot}), "
+          f"page {page_b} B (expected {want_page})")
+    # fed as the server reads a prompt, one decode step per token: the
+    # resident prefill's SSD rounds the conv to bf16 per product where
+    # decode sums it in f32 (as in the JAX package), which alone moves
+    # logits by more than LOGIT_REL_TOL through 3 Mamba2 layers
+    worst, compared, flips = check_requests_resident(
+        torch, np, dev, cfg, params, cont, routes, "jamba-continuous",
+        prefill_as_decode=True)
+    out.update(logit_rel_err=worst, outputs_compared=compared,
+               flips=flips, slot_bytes=slot_b, page_bytes=page_b)
+    print(f"jamba-continuous: prompt lengths "
+          f"{lens[:JAMBA_REQUESTS].tolist()}, concurrency "
+          f"{JAMBA_CONCURRENCY}; SSM slot {slot_b} B, KV page {page_b} "
+          f"B; pool {srv.pool.pool_bytes()} B, {srv.pool.used_bytes()} "
+          f"B held after serving; launches {cl}", flush=True)
+    # the last request ran in a slot freed by an earlier one
+    r = cont[-1]
+    check(r.rid > JAMBA_CONCURRENCY, "jamba-continuous: the last request "
+          "did not run in a recycled slot")
+    zs = zip_server()
+    try:
+        _, solo, _, _ = serve_requests(torch, cfg, [r.prompt], [0.0],
+                                       max_len, zs=zs)
+        solo_routes = served_routes(zs)
+    finally:
+        zs.close()
+    out["recycled_solo"] = recycled_solo_check(
+        np, r, solo[0], routes[r.rid], solo_routes[solo[0].rid],
+        "jamba-continuous")
+    numbers["jamba-continuous"] = out
+
+    # -- jamba-resident: SSD prefill + decode on resident weights ------
+    gc.collect()
+    srv, resident, _, served = serve_requests(
+        torch, cfg, prompts, arrivals, max_len, params=params,
+        continuous=False, concurrency=JAMBA_CONCURRENCY)
+    numbers["jamba-resident"] = serving_numbers("jamba-resident", srv,
+                                                resident, served)
+    for r in resident:
+        check(len(r.output) == SERVE_NEW_TOKENS,
+              f"jamba-resident request {r.rid}: {len(r.output)} tokens")
+    numbers["jamba-resident"]["tokens_equal_continuous"] = sum(
+        a.output == b.output for a, b in zip(resident, cont))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="smoke_store_mamba_",
+                                     dir=ROOT / "build") as tmp:
+        numbers.update(mamba_phase(torch, np, dev, tmp))
+    numbers["cli_s"] = run_cli(torch, ("--arch", JAMBA_ARCH) + CLI_ARGS,
+                               "jamba-cli")
+    return launches, numbers
+
+
 def cfg_moe_layers(cfg):
     return [i for i in range(cfg.n_layers) if cfg.moe_layer(i)]
+
+
+def phase_wall(name: str, t0: float) -> float:
+    wall = time.perf_counter() - t0
+    print(f"phase {name}: {wall:.1f} s", flush=True)
+    return wall
 
 
 def main():
@@ -1856,13 +2434,30 @@ def main():
           f"{time.perf_counter() - t0:.1f} s -> {_build.BUILD_INFO['path']}",
           flush=True)
 
+    walls = {}
+    t0 = time.perf_counter()
     kres = kernel_phase(torch, np, dev, cfg)
+    jamba_kernel_shapes(torch, np, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    walls["2"] = phase_wall("2", t0)
     (ROOT / "build").mkdir(exist_ok=True)
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="smoke_store_",
                                      dir=ROOT / "build") as tmp:
         launches, e2e = main_path(torch, np, dev, cfg, tmp)
+    walls["3-4"] = phase_wall("3-4", t0)
+    t0 = time.perf_counter()
     mla_launches, e2e["mla"] = mla_phase(torch, np, dev)
     launches.update(mla_launches)
+    walls["5"] = phase_wall("5", t0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smoke_store_jamba_",
+                                     dir=ROOT / "build") as tmp:
+        ssm_launches, e2e["ssm"] = ssm_phase(torch, np, dev, tmp)
+    launches.update(ssm_launches)
+    walls["6"] = phase_wall("6", t0)
+    e2e["phase_wall_s"] = walls
     # every kernel runs on some path, and every path runs its kernels; a
     # kernel's launches are its count on the first path that runs it
     for path, names in PATH_KERNELS.items():

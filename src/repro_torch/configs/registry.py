@@ -1,8 +1,12 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-Trimmed to the architectures the port serves so far: the GQA MoE family
-(qwen2-moe-a2.7b, with the paper's qwen1.5-moe-a2.7b name for it) and the
-MLA MoE family (deepseekv2-lite, deepseek-v2-236b).
+Trimmed to the architectures the port serves so far: the dense GQA family
+(granite-8b, deepseek-coder-33b, starcoder2-3b, qwen3-14b), the GQA MoE
+family (qwen2-moe-a2.7b, with the paper's qwen1.5-moe-a2.7b name for it),
+the MLA MoE family (deepseekv2-lite, deepseek-v2-236b), the SSM family
+(mamba2-370m) and the hybrid family (jamba-v0.1-52b).  Of the JAX
+package's architectures, whisper-small (encoder-decoder), qwen2-vl-2b
+(M-RoPE) and switch-large-128 are not ported yet.
 """
 from __future__ import annotations
 
@@ -14,8 +18,14 @@ from repro_torch.configs.base import ModelConfig, reduced
 
 # arch-id -> module name
 _ARCH_MODULES = {
+    "granite-8b": "granite_8b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "starcoder2-3b": "starcoder2_3b",
+    "qwen3-14b": "qwen3_14b",
     "qwen2-moe-a2.7b": "qwen2_moe_a27b",
     "deepseek-v2-236b": "deepseek_v2_236b",
+    "mamba2-370m": "mamba2_370m",
+    "jamba-v0.1-52b": "jamba_v01_52b",
     # paper evaluation models
     "deepseekv2-lite": "deepseekv2_lite",
     "qwen1.5-moe-a2.7b": "qwen2_moe_a27b",   # identical architecture

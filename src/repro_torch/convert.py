@@ -33,8 +33,11 @@ def tensor_from_numpy(arr, device) -> torch.Tensor:
 
 def params_from_jax(tree: Dict[str, Any], cfg, device=None) -> Dict[str, Any]:
     """JAX-package parameter tree (numpy leaves) -> port parameters on
-    `device` (the card by default).  MLA leaves cross as they are: the
-    f32 norm scales (``kv_norm``, ``q_norm``) stay f32."""
+    `device` (the card by default).  Every leaf crosses in its own dtype:
+    MLA's f32 norm scales (``kv_norm``, ``q_norm``) and Mamba2's f32
+    ``dt_bias``, ``A_log``, ``D`` and ``gate_norm`` stay f32, its conv and
+    projections bf16.  A hybrid stack (jamba) unstacks with its period of
+    lcm(moe_every, attn_every) layers."""
     check_supported(cfg)
     dev = resolve_device(device)
     conv = lambda a: tensor_from_numpy(a, dev)          # noqa: E731

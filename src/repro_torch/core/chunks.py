@@ -97,19 +97,25 @@ class GroupMeta:
 
 def pack_group(planes: Dict[str, Tuple[np.ndarray, np.ndarray,
                                        Tuple[int, ...]]],
-               codec: Codec, k_shards: int
+               k_shards: int, compress_all
                ) -> Tuple[bytes, List[TensorMeta]]:
     """Compress one expert group already split into bit-planes:
     ``{name: (exp u8, sm u8, shape)}`` in tensor order.  Returns
-    (blob, metas)."""
+    (blob, metas).  ``compress_all`` maps the list of every E-shard's raw
+    bytes (tensor, then shard order) to their compressed bytes in the
+    same order (``build_store`` compresses them on a thread pool)."""
+    shards = {name: bitfield.shard_plane(exp, k_shards)
+              for name, (exp, _, _) in planes.items()}
+    raw = [shard.tobytes() for name in planes for shard in shards[name]]
+    comps = iter(compress_all(raw))
     blob = bytearray()
     metas: List[TensorMeta] = []
     for name, (exp, sm, shape) in planes.items():
         sm_off = len(blob)
         blob += sm.tobytes()
         e_offs, e_sizes, e_raw, e_crcs = [], [], [], []
-        for shard in bitfield.shard_plane(exp, k_shards):
-            comp = codec.compress(shard.tobytes())
+        for shard in shards[name]:
+            comp = next(comps)
             e_offs.append(len(blob))
             blob += comp
             e_sizes.append(len(comp))

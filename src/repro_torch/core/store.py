@@ -25,7 +25,8 @@ API:
 Expert groups come from the port's per-layer parameter list
 (``models/model.init_params``): a MoE layer's ``ffn.{w_gate,w_up,w_down}``
 stacks ``[E, ...]`` give one group per (layer, expert); a dense layer's FFN
-is a single always-active "expert 0".  The on-disk format (manifest v2,
+is a single always-active "expert 0", and so is a Mamba2 layer's big
+projections ``{w_z, w_x, w_out}`` where the layer has no FFN (mamba2).  The on-disk format (manifest v2,
 per-chunk crc32, K E-shards) is byte-for-byte the JAX package's, so either
 package reads a store the other built.
 """
@@ -55,6 +56,7 @@ DEFAULT_K = 4
 # expert-group extraction from per-layer params
 # ----------------------------------------------------------------------------
 EXPERT_TENSORS = ("w_gate", "w_up", "w_down")   # per-group tensor order
+SSM_TENSORS = ("w_z", "w_x", "w_out")           # an FFN-less Mamba2 layer
 
 
 def iter_expert_groups(params, cfg
@@ -64,6 +66,8 @@ def iter_expert_groups(params, cfg
     for i, lp in enumerate(params["layers"]):
         ffn = lp.get("ffn")
         if ffn is None:
+            if "mamba" in lp:                     # SSM projections as expert 0
+                yield i, 0, {name: lp["mamba"][name] for name in SSM_TENSORS}
             continue
         if "router" in ffn:                       # MoE layer
             for e in range(ffn["w_up"].shape[0]):
@@ -74,42 +78,52 @@ def iter_expert_groups(params, cfg
                          if name in ffn}
 
 
-def _pack(tensors: Dict[str, torch.Tensor], device: torch.device, codec,
-          k_shards: int):
-    """Split one group into bit-planes on `device`, then compress on the
-    host (zlib/zstd release the GIL, so pool threads overlap)."""
+def _pack(tensors: Dict[str, torch.Tensor], device: torch.device,
+          k_shards: int, compress_all):
+    """Split one group into bit-planes on `device`, then compress its
+    E-shards on the host through `compress_all` (zlib/zstd release the
+    GIL, so pool threads overlap)."""
     planes = {}
     for name, t in tensors.items():
         exp, sm = bitfield.decompose(t.to(device))
         planes[name] = (exp.cpu().numpy(), sm.cpu().numpy(), tuple(t.shape))
-    return pack_group(planes, codec, k_shards)
+    return pack_group(planes, k_shards, compress_all)
 
 
 # ----------------------------------------------------------------------------
 # offline build
 # ----------------------------------------------------------------------------
-def build_store(params, cfg, path: str, *, codec: str = None,
+def build_store(params, cfg, path: str, *, codec=None,
                 k_shards: int = DEFAULT_K, device=None,
                 workers: Optional[int] = None) -> "ExpertStore":
-    """Write the compressed store for `params` into `path`.  Groups are
-    split into bit-planes on `device` (the card by default) and compressed
-    by a pool of `workers` threads (default: one per CPU); files, bytes and
-    manifest are exactly what a serial build writes."""
+    """Write the compressed store for `params` into `path`.  `codec` is a
+    codec name (the default codec when None) or a ``Codec`` (e.g. zlib at
+    another level: the manifest records only its name, which is all a
+    reader needs).  Groups are split into bit-planes on `device` (the card
+    by default), and every E-shard is compressed as one task of a pool of
+    `workers` threads (default: one per CPU), so a store of few large
+    groups keeps every thread busy too; files, bytes and manifest are
+    exactly what a serial build writes."""
     dev = resolve_device(device)
     os.makedirs(path, exist_ok=True)
-    cd = get_codec(codec)
+    cd = codec if isinstance(codec, Codec) else get_codec(codec)
     groups = list(iter_expert_groups(params, cfg))
     n = workers or os.cpu_count() or 1
 
     def job(item):
         layer, expert, tensors = item
         fname = f"g{layer}_{expert}.bin"
-        blob, metas = _pack(tensors, dev, cd, k_shards)
+        blob, metas = _pack(tensors, dev, k_shards,
+                            lambda raw: list(shard_pool.map(cd.compress,
+                                                            raw)))
         with open(os.path.join(path, fname), "wb") as f:
             f.write(blob)
         return GroupMeta(layer, expert, fname, metas)
 
-    with ThreadPoolExecutor(max_workers=n) as pool:
+    # n groups in flight feed one pool of n compressing threads (a group's
+    # thread only waits on its shards, so the two pools cannot deadlock)
+    with ThreadPoolExecutor(max_workers=n) as shard_pool, \
+            ThreadPoolExecutor(max_workers=n) as pool:
         metas = list(pool.map(job, groups))      # input order: serial manifest
     extra = {"arch": cfg.name, "n_layers": cfg.n_layers,
              "n_experts": max(1, cfg.n_experts)}

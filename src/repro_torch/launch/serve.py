@@ -5,9 +5,13 @@ CPU with the kernels' plain versions).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
       --mode zipmoe-batch --device-cache --requests 8 --max-new 16
 
---arch takes qwen2-moe-a2.7b (qwen1.5-moe-a2.7b), deepseekv2-lite or
-deepseek-v2-236b, served at the CLI's smoke size (d_model 256, 6 layers,
-vocab 2048).
+--arch takes any entry of ``repro_torch.configs.registry``: the MoE
+configs qwen2-moe-a2.7b (qwen1.5-moe-a2.7b), deepseekv2-lite,
+deepseek-v2-236b and jamba-v0.1-52b (hybrid), the SSM mamba2-370m and the
+dense granite-8b, deepseek-coder-33b, starcoder2-3b and qwen3-14b, served
+at the CLI's smoke size (d_model 256, 6 layers, vocab 2048).  A config
+without routed experts keeps its FFNs resident in the zipmoe modes (the
+store holds them, nothing is fetched).
 
 --mode resident     : in-memory serving (BatchServer: prefill + decode on
                       the resident weights).

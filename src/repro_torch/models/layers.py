@@ -69,8 +69,10 @@ def apply_rope(x, positions, theta):
 # Dense MLP (SwiGLU or GELU)
 # ----------------------------------------------------------------------------
 def silu(x):
-    """``x * sigmoid(x)`` in x's dtype, as the JAX package defines it."""
-    return x * torch.sigmoid(x)
+    """``x * sigmoid(x)`` in x's dtype, the sigmoid as ``1 / (1 + exp(-x))``
+    with each op rounded to that dtype: how the JAX package lowers it
+    (``torch.sigmoid`` rounds once and differs in the last bf16 bit)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
 def init_mlp(gen, cfg, device, d_ff=None, d=None):

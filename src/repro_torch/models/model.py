@@ -1,18 +1,24 @@
-"""Model facade: init / init_cache / forward / prefill / decode_step (MoE
-and dense decoders with GQA or MLA attention).
+"""Model facade: init / init_cache / forward / prefill / decode_step for
+decoder-only stacks.  Every layer is ``x += mixer(norm(x)); x += ffn(norm(x))``
+with mixer ∈ {GQA or MLA attention, Mamba2} and ffn ∈ {MoE, dense MLP,
+none}: dense and MoE decoders, the SSM family (mamba2, every layer a
+Mamba2 mixer with no FFN) and the hybrid family (jamba's attention every
+``attn_every`` layers, Mamba2 elsewhere).
 
 Parameters are a plain dict with a **per-layer list**, not the JAX
 package's scanned stack::
 
     {"embed": {"tok": [V, d]},
-     "layers": [{"norm1", "attn", "norm2", "ffn"}, ...],
+     "layers": [{"norm1", "attn" | "mamba", ["norm2", "ffn"]}, ...],
      "final_norm": {"scale"}, "lm_head": {"w": [d, V]}}
 
-``init_params`` draws them from a seeded ``torch.Generator`` (on the target
-device); ``repro_torch.convert.params_from_jax`` builds the same structure
-from the JAX package's parameter tree.  :func:`prefill` followed by
-:func:`decode_step` is the fully resident model that the serving paths are
-checked against.
+and the caches a per-layer list of ``{"kv": ...}`` (attention) or
+``{"ssm": {"state", "conv"}}`` (Mamba2).  ``init_params`` draws them from
+a seeded ``torch.Generator`` (on the target device);
+``repro_torch.convert.params_from_jax`` builds the same structure from the
+JAX package's parameter tree.  :func:`prefill` followed by
+:func:`decode_step` is the fully resident model that the serving paths
+are checked against.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (apply_mlp, apply_norm, init_embed,
                                        init_lm_head, init_mlp, init_norm)
@@ -42,30 +49,59 @@ def stack_layout(cfg):
     return prefix, period, rest // period
 
 
+def mixer_kind(cfg, idx: int) -> str:
+    """``"mamba"`` or ``"attn"``: layer `idx`'s sequence mixer."""
+    if cfg.family == "ssm" or (cfg.family == "hybrid"
+                               and not cfg.attn_layer(idx)):
+        return "mamba"
+    return "attn"
+
+
+def ffn_kind(cfg, idx: int) -> str:
+    """``"moe"``, ``"mlp"`` or ``"none"`` (mamba2: no FFN at all)."""
+    if cfg.moe_layer(idx):
+        return "moe"
+    return "mlp" if cfg.d_ff else "none"
+
+
 def check_supported(cfg):
     """Raise ``NotImplementedError`` for a config the port does not serve:
     every entry point that takes a config calls this before any work."""
-    if cfg.attn not in ("gqa", "mla") or \
-            cfg.family not in ("moe", "dense") or \
-            cfg.encoder_decoder or cfg.mrope or cfg.pos != "rope" or \
-            cfg.tie_embeddings or not cfg.embed_inputs:
+    fam = cfg.family
+    ok = (fam in ("moe", "dense", "ssm", "hybrid")
+          and not cfg.encoder_decoder and not cfg.mrope
+          and not cfg.tie_embeddings and cfg.embed_inputs)
+    if fam == "ssm":           # no attention layer at all
+        ok = ok and cfg.attn == "none" and cfg.pos == "none"
+    else:
+        ok = ok and cfg.attn in ("gqa", "mla") and (
+            cfg.pos == "rope" or (fam == "hybrid" and cfg.pos == "none"))
+    if fam in ("ssm", "hybrid"):
+        # a Mamba2 mixer needs a state, whole heads and whole groups
+        ok = ok and cfg.ssm_state > 0 and cfg.ssm_headdim > 0 \
+            and cfg.ssm_conv > 1 and cfg.d_inner % cfg.ssm_headdim == 0 \
+            and cfg.ssm_groups > 0 and cfg.ssm_heads % cfg.ssm_groups == 0 \
+            and (fam == "ssm" or cfg.attn_every > 0)
+    if not ok:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves decoder-only GQA/MLA RoPE models "
-            f"with MoE or dense FFNs so far")
+            f"{cfg.name}: the port serves decoder-only dense and MoE GQA/MLA "
+            f"RoPE models, Mamba2 SSMs and attention/Mamba2 hybrids so far")
 
 
 # ----------------------------------------------------------------------------
 # init
 # ----------------------------------------------------------------------------
 def init_layer(gen, cfg, idx: int, device) -> Dict[str, Any]:
-    p: Dict[str, Any] = {"norm1": init_norm(cfg, device),
-                         "attn": attn_lib.init_attn(gen, cfg, device)}
-    if cfg.moe_layer(idx):
+    p: Dict[str, Any] = {"norm1": init_norm(cfg, device)}
+    if mixer_kind(cfg, idx) == "attn":
+        p["attn"] = attn_lib.init_attn(gen, cfg, device)
+    else:
+        p["mamba"] = mamba_lib.init_mamba(gen, cfg, device)
+    fk = ffn_kind(cfg, idx)
+    if fk != "none":
         p["norm2"] = init_norm(cfg, device)
-        p["ffn"] = moe_lib.init_moe(gen, cfg, device)
-    elif cfg.d_ff:
-        p["norm2"] = init_norm(cfg, device)
-        p["ffn"] = init_mlp(gen, cfg, device)
+        p["ffn"] = (moe_lib.init_moe(gen, cfg, device) if fk == "moe"
+                    else init_mlp(gen, cfg, device))
     return p
 
 
@@ -82,12 +118,21 @@ def init_params(cfg, seed: int = 0, device=None) -> Dict[str, Any]:
     return p
 
 
+def init_layer_cache(cfg, idx: int, batch: int, length: int, device
+                     ) -> Dict[str, Any]:
+    """Layer `idx`'s empty cache: ``{"kv": ...}`` of `length` tokens, or a
+    Mamba2 layer's sequence-free ``{"ssm": {"state", "conv"}}``."""
+    if mixer_kind(cfg, idx) == "attn":
+        return {"kv": attn_lib.init_kv_cache(cfg, batch, length, device)}
+    return {"ssm": mamba_lib.init_ssm_cache(cfg, batch, device)}
+
+
 def init_cache(cfg, batch: int, length: int, device=None) -> List[Dict]:
-    """Per-layer KV caches on `device` (the card by default)."""
+    """Per-layer caches on `device` (the card by default)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return [{"kv": attn_lib.init_kv_cache(cfg, batch, length, dev)}
-            for _ in range(cfg.n_layers)]
+    return [init_layer_cache(cfg, i, batch, length, dev)
+            for i in range(cfg.n_layers)]
 
 
 # ----------------------------------------------------------------------------
@@ -97,10 +142,12 @@ def forward(p, cfg, tokens, *, mode="full", moe_impl="einsum",
             router_ids=None):
     """Full-sequence causal pass.  tokens: [B, S] int.  Returns (logits
     [B, S, V], caches, aux): with ``mode="prefill"`` the per-layer list of
-    ``{"kv": {"k", "v"}}`` caches of length S, else None; aux is the summed
-    load-balance loss of the MoE layers.  With MLA the caches are the
-    latent ``{"ckv", "k_rope"}``.  When `router_ids` is a list, the
-    router's [B, S, k] expert ids of each MoE layer are appended to it."""
+    caches (attention: ``{"kv": {"k", "v"}}`` of length S, with MLA the
+    latent ``{"ckv", "k_rope"}``; Mamba2: ``{"ssm": {"state", "conv"}}``
+    after the last token), else None; aux is the summed load-balance loss
+    of the MoE layers.  A Mamba2 stack needs S to be a multiple of
+    ``min(ssm_chunk, S)``.  When `router_ids` is a list, the router's
+    [B, S, k] expert ids of each MoE layer are appended to it."""
     assert mode in ("full", "prefill"), mode
     x = p["embed"]["tok"][tokens]
     B, S = tokens.shape
@@ -112,9 +159,16 @@ def forward(p, cfg, tokens, *, mode="full", moe_impl="einsum",
         attn_lib.gqa_forward
     for lp in p["layers"]:
         h = apply_norm(lp["norm1"], x, cfg)
-        y, kv = attn_forward(lp["attn"], h, cfg, positions, return_cache=True)
+        if "mamba" in lp:
+            y, c = mamba_lib.mamba_forward(lp["mamba"], h, cfg,
+                                           return_cache=True)
+            c = {"ssm": c}
+        else:
+            y, kv = attn_forward(lp["attn"], h, cfg, positions,
+                                 return_cache=True)
+            c = {"kv": kv}
         if caches is not None:
-            caches.append({"kv": kv})
+            caches.append(c)
         x = x + y
         if "ffn" in lp:
             h2 = apply_norm(lp["norm2"], x, cfg)
@@ -151,7 +205,10 @@ def decode_step(p, cfg, tokens, caches, pos: int, router_ids=None):
         attn_lib.gqa_decode
     for lp, cache in zip(p["layers"], caches):
         h = apply_norm(lp["norm1"], x, cfg)
-        y, _ = attn_decode(lp["attn"], h, cfg, cache["kv"], pos)
+        if "mamba" in lp:
+            y, _ = mamba_lib.mamba_decode(lp["mamba"], h, cfg, cache["ssm"])
+        else:
+            y, _ = attn_decode(lp["attn"], h, cfg, cache["kv"], pos)
         x = x + y
         if "ffn" in lp:
             h2 = apply_norm(lp["norm2"], x, cfg)

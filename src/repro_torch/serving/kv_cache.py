@@ -1,5 +1,5 @@
 """KV-cache utilities: per-layer views of stacked trees, cache growth,
-memory accounting and the paged per-request KV state of continuous
+memory accounting and the paged per-request decode state of continuous
 batching.
 
 The JAX package scans its decoder over super-blocks, so its trees carry a
@@ -18,6 +18,12 @@ Two allocation models of KV state live here:
   back to its (page, offset), and ``free`` returns the pages at
   retirement.  Pages are never zeroed on reuse: attention masks positions
   ``> pos`` to exactly zero weight, so stale bytes are unobservable.
+  Sequence-free leaves (a Mamba2 layer's ``ssm`` state and conv ring) get
+  one per-request *slot* in a ``[max_slots, ...]`` buffer, gathered and
+  rewritten whole each step; a slot IS zeroed when a new request takes
+  it, because the Mamba2 recurrence reads its state unmasked (the JAX
+  package's pool does not zero it, so there a request served in a
+  recycled slot starts from its predecessor's state).
 * :func:`grow_cache` — the whole-cache copy of the static-batch path, and
   the contiguous layout the page pool is tested against.
 """
@@ -29,9 +35,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import init_kv_cache
 from repro_torch.models.model import check_supported, init_cache, \
-    stack_layout
+    init_layer_cache, stack_layout
 
 
 def map_tree(fn, tree):
@@ -88,7 +93,9 @@ def restack_layers(layers, cfg):
 
 def grow_cache(cfg, caches, batch: int, new_len: int):
     """Copy per-layer `caches` (a prefill's, sequence length S) into new
-    zeroed buffers of length `new_len` on the same device."""
+    zeroed buffers of length `new_len` on the same device.  Sequence-free
+    leaves (``ssm`` state and conv ring) have their final shape already
+    and are copied whole."""
     dev = tree_leaves(caches)[0].device
     target = init_cache(cfg, batch, new_len, device=dev)
 
@@ -109,17 +116,18 @@ def cache_bytes(cache) -> int:
 # paged KV pool (continuous batching)
 # ----------------------------------------------------------------------------
 class KVPagePool:
-    """Fixed-size KV page pool shared by all active requests.
+    """Fixed-size page pool of per-request decode state, shared by all
+    active requests.
 
     Per layer, the sequence leaves live in ``[n_pages, page_size, ...]``
     device buffers (GQA ``k``/``v``: ``[..., Hkv, D]``; MLA ``ckv``:
     ``[..., kv_lora_rank]`` and ``k_rope``: ``[..., qk_rope_dim]``)
-    addressed through per-request page tables.  ``max_slots`` bounds how many requests hold
-    pages at once (one slot each).  The port serves no family with
-    sequence-free state yet (SSM state, cross-attention K/V), so a slot
-    holds no bytes.  All bookkeeping (free lists, tables) is host-side
-    Python: only the decode thread calls ``alloc``/``gather``/``commit``/
-    ``free``.
+    addressed through per-request page tables; the sequence-free leaves
+    (Mamba2 ``ssm``: ``state [..., H, P, N]`` f32, ``conv [..., w-1, C]``)
+    live in ``[max_slots, ...]`` buffers addressed by the request's slot.
+    ``max_slots`` bounds how many requests hold pages at once (one slot
+    each).  All bookkeeping (free lists, tables) is host-side Python: only
+    the decode thread calls ``alloc``/``gather``/``commit``/``free``.
     """
 
     def __init__(self, cfg, *, page_size: int = 16, n_pages: int = 64,
@@ -133,11 +141,22 @@ class KVPagePool:
         self.page_size = int(page_size)
         self.n_pages = int(n_pages)
         self.max_slots = int(max_slots)
-        # per layer {"kv": {leaf: [n_pages, page_size, ...]}}
-        self._paged: List[Dict] = [
-            {"kv": init_kv_cache(cfg, self.n_pages, self.page_size,
-                                 self.device)}
-            for _ in range(cfg.n_layers)]
+        # per layer, split by allocation model: {"kv": {leaf: [n_pages,
+        # page_size, ...]}} and {"ssm": {leaf: [max_slots, ...]}}
+        self._paged: List[Dict] = []
+        self._slot: List[Dict] = []
+        for idx in range(cfg.n_layers):
+            paged, slot = {}, {}
+            for key, sub in init_layer_cache(cfg, idx, 1, self.page_size,
+                                             self.device).items():
+                if key == "kv":      # leaves [1, page_size, ...tail]
+                    paged[key] = map_tree(lambda x: x.new_zeros(
+                        (self.n_pages,) + x.shape[1:]), sub)
+                else:                # leaves [1, ...tail] (sequence-free)
+                    slot[key] = map_tree(lambda x: x.new_zeros(
+                        (self.max_slots,) + x.shape[1:]), sub)
+            self._paged.append(paged)
+            self._slot.append(slot)
         self._free_pages: List[int] = list(range(self.n_pages))
         self._free_slots: List[int] = list(range(self.max_slots))
         self._tables: Dict[int, List[int]] = {}    # rid -> page ids
@@ -158,8 +177,9 @@ class KVPagePool:
         return cache_bytes(self._paged) // self.n_pages
 
     def slot_nbytes(self) -> int:
-        """Bytes one request slot holds (no sequence-free state: 0)."""
-        return 0
+        """Bytes one request slot holds across all layers' sequence-free
+        leaves (0 for a stack without Mamba2 layers)."""
+        return cache_bytes(self._slot) // self.max_slots
 
     def used_bytes(self) -> int:
         """Bytes held by live (allocated) pages and slots — returns to 0
@@ -198,12 +218,18 @@ class KVPagePool:
                 f"({len(self._free_pages)} free) and a slot "
                 f"({len(self._free_slots)} free)")
         self._tables[rid] = [self._free_pages.pop() for _ in range(need)]
-        self._slots[rid] = self._free_slots.pop()
+        slot = self._slots[rid] = self._free_slots.pop()
         self._cap[rid] = need * self.page_size
+        # a new request starts from the zero state: the recurrence reads
+        # the slot unmasked, so a predecessor's state must not survive
+        for ls in self._slot:
+            for buf in tree_leaves(ls):
+                buf[slot] = 0
 
     def free(self, rid: int):
-        """Return `rid`'s pages and slot (retirement).  Contents are NOT
-        zeroed — the next owner's masking makes them unobservable."""
+        """Return `rid`'s pages and slot (retirement).  Pages are NOT
+        zeroed — the next owner's masking makes them unobservable; a slot
+        is zeroed when it is next allocated."""
         self._free_pages.extend(self._tables.pop(rid))
         self._free_slots.append(self._slots.pop(rid))
         self._cap.pop(rid)
@@ -216,27 +242,36 @@ class KVPagePool:
         """Per-layer caches for one decode step over `rids`: each sequence
         leaf becomes a ``[B, T_pad, ...]`` COPY (advanced indexing),
         ``T_pad`` the longest active allocation; short rows pad with their
-        own first page, masked, so its contents are irrelevant.  The views
-        have the structure ``models.init_cache`` gives, so the decode path
-        consumes them unchanged, writing the step's new K/V into them; the
-        page table goes to the device once per step."""
+        own first page, masked, so its contents are irrelevant.  Each
+        sequence-free leaf becomes a ``[B, ...]`` copy of the rows' slots.
+        The views have the structure ``models.init_cache`` gives, so the
+        decode path consumes them unchanged, writing the step's new state
+        into them; page table and slots go to the device once per step."""
         B = len(rids)
         P = max(len(self._tables[r]) for r in rids)
         tables = np.asarray([self._tables[r]
                              + [self._tables[r][0]] * (P - len(self._tables[r]))
+                             + [self._slots[r]]
                              for r in rids], np.int64)
-        tab = torch.from_numpy(tables).to(self.device)        # [B, P]
+        both = torch.from_numpy(tables).to(self.device)      # [B, P + 1]
+        tab, slots = both[:, :P], both[:, P]
         T = P * self.page_size
-        return [{key: {name: buf[tab].reshape((B, T) + buf.shape[2:])
-                       for name, buf in sub.items()}
-                 for key, sub in paged.items()}
-                for paged in self._paged]
+        out = []
+        for paged, slot in zip(self._paged, self._slot):
+            view = {key: {name: buf[tab].reshape((B, T) + buf.shape[2:])
+                          for name, buf in sub.items()}
+                    for key, sub in paged.items()}
+            view.update({key: map_tree(lambda buf: buf[slots], sub)
+                         for key, sub in slot.items()})
+            out.append(view)
+        return out
 
     def commit(self, caches: Sequence[Dict], rids: Sequence[int], positions):
         """Write each row's NEW token back from the step's updated views:
-        row ``b``'s ``positions[b]`` entry goes to its (page, offset).
-        Raises, before any write, if a row would write past its allocated
-        capacity (the max_len guard the server relies on)."""
+        row ``b``'s ``positions[b]`` entry goes to its (page, offset), its
+        sequence-free leaves to its slot, whole.  Raises, before any write,
+        if a row would write past its allocated capacity (the max_len
+        guard the server relies on)."""
         positions = np.asarray(positions, np.int64)
         for r, pos in zip(rids, positions):
             if pos >= self._cap[r]:
@@ -248,9 +283,14 @@ class KVPagePool:
               for r, pos in zip(rids, positions)],
              positions % self.page_size,
              np.arange(len(rids)),
-             positions], np.int64)
-        pages, offs, rows, posv = torch.from_numpy(idx).to(self.device)
-        for view, paged in zip(caches, self._paged):
+             positions,
+             [self._slots[r] for r in rids]], np.int64)
+        pages, offs, rows, posv, slots = torch.from_numpy(idx).to(
+            self.device)
+        for view, paged, slot in zip(caches, self._paged, self._slot):
             for key, sub in paged.items():
                 for name, buf in sub.items():
                     buf[pages, offs] = view[key][name][rows, posv]
+            for key, sub in slot.items():
+                for name, buf in sub.items():
+                    buf[slots] = view[key][name]

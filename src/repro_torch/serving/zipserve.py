@@ -72,9 +72,14 @@ decompression + bit-splice recovery) before the FFN runs.
 
 Model families: GQA and MLA attention (``cfg.attn``); an MLA config
 decodes through ``mla_decode`` / ``mla_decode_rows`` (absorbed) over the
-latent KV cache, and a dense layer (deepseek-v2's first) stays resident
-while the store still holds it as group ``(layer, 0)``, as the JAX package
-serves it.  Any other family is refused at construction.
+latent KV cache, and a dense layer (deepseek-v2's first, jamba's even
+layers) stays resident while the store still holds it as group
+``(layer, 0)``, as the JAX package serves it.  A Mamba2 layer (the ssm and
+hybrid families) decodes with ``mamba_decode`` over its sequence-free
+``ssm`` cache, one recurrence step per row whatever the row's position;
+mamba2's FFN-less layers keep their projections resident while the store
+holds them as group ``(layer, 0)``.  Any other family is refused at
+construction.
 
 Not ported yet: the multi-device peer tier (``mesh_devices`` raises
 ``NotImplementedError``).
@@ -103,6 +108,7 @@ from repro_torch.kernels.ops import (bucket_rows, fused_zip_gemm,
                                      grouped_expert_gemm, recover_bf16_host,
                                      slab_gemm, zip_gemm_batch)
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba as mamba_lib
 from repro_torch.models.layers import apply_mlp, apply_norm, silu
 from repro_torch.models.model import check_supported, init_cache
 from repro_torch.models.moe import route
@@ -1029,7 +1035,10 @@ class ZipServer:
         # expert work inside goes through the grouped-GEMM kernels)
         for idx, (lp, cache) in enumerate(zip(self.layers, caches)):
             h = apply_norm(lp["norm1"], x, cfg)
-            if cfg.attn == "mla":
+            if "mamba" in lp:
+                y, _ = mamba_lib.mamba_decode(lp["mamba"], h, cfg,
+                                              cache["ssm"])
+            elif cfg.attn == "mla":
                 y, _ = attn_lib.mla_decode(lp["attn"], h, cfg, cache["kv"],
                                            pos)
             else:
@@ -1073,7 +1082,10 @@ class ZipServer:
         # expert work inside goes through the grouped-GEMM kernels)
         for idx, (lp, cache) in enumerate(zip(self.layers, caches)):
             h = apply_norm(lp["norm1"], x, cfg)
-            if cfg.attn == "mla":
+            if "mamba" in lp:      # sequence-free: one step per row as is
+                y, _ = mamba_lib.mamba_decode(lp["mamba"], h, cfg,
+                                              cache["ssm"])
+            elif cfg.attn == "mla":
                 y, _ = attn_lib.mla_decode_rows(lp["attn"], h, cfg,
                                                 cache["kv"], positions)
             else:

@@ -589,3 +589,89 @@ def test_mla_device_slab_step_on_card(cuda, tmp_path):
                    ("splice", "splice_admit", "slab_gemm")), _build.LAUNCHES
     finally:
         zs.close()
+
+
+# ---------------------------------------------------------------------------
+# the SSM and hybrid families
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ["mamba2-370m", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_on_card_matches_cpu(cuda, arch, dtype):
+    """One Mamba2 layer at the config's published widths: ``mamba_forward``
+    over two 256-token chunks and a ``mamba_decode`` step from its cache,
+    on the card against the same call on the CPU.  f32: within 1e-4 of
+    the largest magnitude (sums in other orders); bf16: within 2%, the
+    cross-package tolerance (the products round to bf16 in other orders)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba as mamba_lib
+    cfg = dataclasses.replace(get_config(arch), n_layers=1, dtype=dtype)
+    g = torch.Generator().manual_seed(0)
+    p = mamba_lib.init_mamba(g, cfg, "cpu")
+    dt = getattr(torch, dtype)
+    x = torch.randn((1, 2 * cfg.ssm_chunk, cfg.d_model), generator=g).to(dt)
+    x1 = torch.randn((1, 1, cfg.d_model), generator=g).to(dt)
+    tol = 1e-4 if dtype == "float32" else 0.02
+    outs = {}
+    for dev in ("cpu", cuda):
+        pd = {k: v.to(dev) for k, v in p.items()}
+        y, cache = mamba_lib.mamba_forward(pd, x.to(dev), cfg,
+                                           return_cache=True)
+        y1, cache = mamba_lib.mamba_decode(pd, x1.to(dev), cfg, cache)
+        outs[str(dev)] = [t.float().cpu() for t in
+                          (y, y1, cache["state"], cache["conv"])]
+    for got, want in zip(outs[str(cuda)], outs["cpu"]):
+        assert (got - want).abs().max() <= tol * want.abs().max()
+
+
+def test_jamba_device_slab_step_on_card(cuda, tmp_path):
+    """jamba at smoke size on the card (Mamba2 mixers, one attention
+    layer, MoE on odd layers): ``decode_step`` over device slabs and the
+    ragged FFN launches the splice, the splice-admit and the ragged GEMM,
+    the logits match the resident model on the card within 2% of the
+    largest |logit|; then continuous batching over ``decode_rows`` with
+    its SSM slots on the card, the pool back to 0 bytes."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.store import build_store
+    from repro_torch.models import decode_step, init_cache, init_params
+    from repro_torch.serving.server import BatchServer
+    from repro_torch.serving.zipserve import ZipServer
+    cfg = get_smoke_config("jamba-v0.1-52b")
+    params = init_params(cfg, seed=0, device=cuda)
+    build_store(params, cfg, str(tmp_path), device=cuda)
+    pools = {"F": 2, "C": 2, "S": 2, "E": 2}
+    zs = ZipServer(params, cfg, str(tmp_path), L=2, device_cache=True,
+                   pool_sizes=pools, device=cuda)
+    try:
+        B = 2
+        caches, rcache = zs.init_cache(B, 4), init_cache(cfg, B, 4, cuda)
+        assert caches[0]["ssm"]["state"].is_cuda
+        tok = torch.zeros((B, 1), dtype=torch.long, device=cuda)
+        _build.reset_launches()
+        for i in range(4):
+            lg, caches = zs.decode_step(tok, caches, i)
+            rl, rcache = decode_step(params, cfg, tok, rcache, i)
+            err = (lg.float() - rl.float()).abs().max().item()
+            assert err <= 0.02 * rl.float().abs().max().item(), (i, err)
+            tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+        torch.cuda.synchronize()
+        assert all(_build.LAUNCHES[k] > 0 for k in
+                   ("splice", "splice_admit", "slab_gemm")), _build.LAUNCHES
+    finally:
+        zs.close()
+    zs = ZipServer(params, cfg, str(tmp_path), L=2, device_cache=True,
+                   pool_sizes=pools, device=cuda)
+    try:
+        srv = BatchServer(None, cfg, max_batch=2, max_len=16, zip_server=zs,
+                          max_concurrency=2, page_size=4)
+        rng = np.random.default_rng(0)
+        for n in (3, 6, 4, 5):
+            srv.submit(rng.integers(0, cfg.vocab_size, n), 4)
+        done = srv.run()
+        torch.cuda.synchronize()
+        assert len(done) == 4 and all(
+            len(r.output) == 4 and r.error is None for r in done)
+        assert srv.pool.used_bytes() == 0
+        assert srv.pool._slot[0]["ssm"]["state"].is_cuda
+    finally:
+        zs.close()

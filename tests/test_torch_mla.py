@@ -35,8 +35,9 @@ from a seed and cross into the port through ``params_from_jax``.
   ``--arch deepseekv2-lite`` in its three modes; **continuous ≡ solo**
   (the assertions of test_torch_batching, restated for the latent pages).
 * **Entry points refuse** a config the port does not serve (M-RoPE,
-  learned positions, a hybrid) with ``NotImplementedError`` before any
-  work.
+  learned positions, a hybrid whose Mamba2 mixers have no state width,
+  an encoder-decoder, tied embeddings) with ``NotImplementedError``
+  before any work.
 """
 import dataclasses
 import filecmp
@@ -744,7 +745,13 @@ _BASE = get_smoke_config("qwen2-moe-a2.7b", n_layers=2)
 UNSUPPORTED = {
     "mrope": dataclasses.replace(_BASE, mrope=True),
     "learned-pos": dataclasses.replace(_BASE, pos="learned"),
-    "hybrid": dataclasses.replace(_BASE, family="hybrid", attn_every=2),
+    # the hybrid family is served since jamba; one with ssm_state = 0 has
+    # no Mamba2 state to carry and is still refused
+    "hybrid": dataclasses.replace(_BASE, family="hybrid", attn_every=2,
+                                  ssm_state=0),
+    "encoder-decoder": dataclasses.replace(_BASE, encoder_decoder=True,
+                                           n_enc_layers=2),
+    "tied-embeddings": dataclasses.replace(_BASE, tie_embeddings=True),
 }
 
 

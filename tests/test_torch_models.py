@@ -29,27 +29,33 @@ from repro_torch.models import decode_step, init_cache
 from repro_torch.models.moe import route
 
 MAX_REL, MEAN_REL = 0.02, 0.005
-_SMALL = {"scale", "q_norm", "k_norm", "kv_norm"}   # norm scales: ones
+# the 1-D leaves, each the constant the JAX init gives it: norm scales
+# and Mamba2's D and gate norm ones; LayerNorm's bias, Mamba2's dt bias,
+# A_log (A = -1) and conv bias zeros
+_CONST = {"scale": 1.0, "q_norm": 1.0, "k_norm": 1.0, "kv_norm": 1.0,
+          "D": 1.0, "gate_norm": 1.0,
+          "bias": 0.0, "dt_bias": 0.0, "A_log": 0.0, "conv_b": 0.0}
 # embed and lm head as the JAX init; the router 10x the JAX init, so the
 # top-k margins sit far above bf16 noise and a test compares arithmetic,
 # not the luck of near-ties (at 0.02 the 8 smoke experts' probabilities
 # are all close to 1/8 and the two packages' last-ulp differences can
-# swap two of them)
-_STD = {"tok": 0.02, "w": 0.02, "router": 0.2}
+# swap two of them); Mamba2's depthwise conv as the JAX init
+_STD = {"tok": 0.02, "w": 0.02, "router": 0.2, "conv_w": 0.2}
 
 
 def numpy_params(jcfg, seed: int = 0):
     """The JAX package's parameter tree for `jcfg` (its shapes and dtypes,
     from ``jax.eval_shape`` of its ``init_params``), every leaf drawn from
-    ``numpy.random.default_rng(seed)`` with the JAX init's scale."""
+    ``numpy.random.default_rng(seed)`` with the JAX init's scale (a 1-D
+    leaf with the JAX init's constant)."""
     shapes = jax.eval_shape(functools.partial(ref_init_params, cfg=jcfg),
                             jax.random.PRNGKey(0))
     rng = np.random.default_rng(seed)
 
     def leaf(path, s):
         name = path[-1].key
-        if name in _SMALL:
-            a = np.ones(s.shape, np.float32)
+        if name in _CONST:
+            a = np.full(s.shape, _CONST[name], np.float32)
         else:
             std = _STD.get(name, (2.0 / (s.shape[-2] + s.shape[-1])) ** 0.5)
             a = rng.standard_normal(s.shape).astype(np.float32) * std
@@ -182,3 +188,22 @@ def test_decode_step_matches_reference(models, monkeypatch):
         for t_ids, j_ids in zip(ids, seen):
             assert np.array_equal(t_ids.numpy(), j_ids), i
         seen.clear()
+
+
+def test_numpy_params_draws_1d_leaves():
+    """The shared parameter helper draws every 1-D leaf with the JAX
+    init's constant: LayerNorm's bias (starcoder2-3b) and the Mamba2
+    leaves (jamba's), and Mamba2's conv with the init's 0.2 scale."""
+    tree = numpy_params(ref_smoke_config("starcoder2-3b", n_layers=1))
+    norm = tree["decoder"]["stack"]["sub_0"]["norm1"]
+    assert (np.asarray(norm["bias"]) == 0).all()
+    assert (np.asarray(norm["scale"]) == 1).all()
+    tree = numpy_params(ref_smoke_config("jamba-v0.1-52b"))
+    m = tree["decoder"]["stack"]["sub_0"]["mamba"]
+    for name, value in (("dt_bias", 0), ("A_log", 0), ("D", 1),
+                        ("gate_norm", 1), ("conv_b", 0)):
+        assert m[name].ndim == 2, name            # [m, n]: 1-D per layer
+        assert (np.asarray(m[name], np.float32) == value).all(), name
+    assert m["A_log"].dtype == jnp.float32
+    std = float(np.asarray(m["conv_w"], np.float32).std())
+    assert 0.18 < std < 0.22, std
