@@ -153,8 +153,33 @@ failure exits non-zero:
    kernel launched, and the resident ``BatchServer`` over the serving
    traffic.  Last, the CLI with ``--arch jamba-v0.1-52b``.  Phase 2 also
    times kernels 1-3 at jamba's expert shapes (d 4096, f 14336, 4 tokens
-   x top-2) against their plain versions, each with its bound.
-7. One JSON line with each kernel's launches on its path, error, times and
+   x top-2) and at switch-large-128's (d 1024, f 2816, 4 tokens x top-1)
+   against their plain versions and ``torch.bmm``, each with its bound.
+7. The encoder-decoder and M-RoPE families.  switch-large-128 (the
+   paper's third evaluation model) with every width as published (d_model
+   1024, 16 heads x 64, 128 experts top-1 of d_expert 2816 with GELU,
+   learned positions, vocab 32128, 512 encoder frames), depth cut: decoder
+   24 -> 4 (dense MLPs at 0 and 2, MoE at 1 and 3), encoder 24 -> 2,
+   seeded random weights.  Its store (2.95 GB of expert bf16, zlib at
+   level 1) is loaded back bit-exactly; a resident prefill of 8 tokens
+   over seeded encoder inputs fills the caches, cross-attention K/V
+   (``xkv``) included; then
+
+   * ``switch-ragged``: 8 greedy ``ZipServer.decode_step``s (device slabs,
+     ragged FFN, the phase-3 pools) over those caches, each decoder layer
+     attending over ``xkv`` between its mixer and its FFN, held against
+     the resident model under teacher forcing (a top-1 near-tie flip is
+     reported, not compared); ``xkv`` must come back unchanged, and the
+     splice, the splice-admit and the ragged GEMM must launch.
+
+   whisper-small at every width and depth (12 + 12 layers, 1500 encoder
+   frames): ``prefill(S-1)`` + ``decode_step`` against ``forward(S)``, and
+   ``ZipServer.decode_step`` bit-identical to the resident model with no
+   kernel launched (its FFNs are dense).  qwen2-vl-2b at every width and
+   depth (28 layers) fed seeded embeddings with M-RoPE positions of one
+   image grid then text (three channels that differ): ``prefill(S-1)`` +
+   ``decode_step`` against ``forward(S)``.
+8. One JSON line with each kernel's launches on its path, error, times and
    bound; then the result line.  Each phase's wall time is printed as it
    ends.
 """
@@ -221,6 +246,7 @@ PATH_KERNELS = {
     "mla-continuous": ("splice", "splice_admit", "slab_gemm"),
     "jamba-ragged": ("splice", "splice_admit", "slab_gemm"),
     "jamba-continuous": ("splice", "splice_admit", "slab_gemm"),
+    "switch-ragged": ("splice", "splice_admit", "slab_gemm"),
 }
 # phase 5: deepseekv2-lite, every width as published, depth 27 -> 3 (one
 # dense layer, two MoE layers, so the cross-layer prefetch stays real)
@@ -268,6 +294,25 @@ MAMBA_BF16_REL_TOL = 0.15
 DENSE_ARCHS = ("qwen3-14b", "starcoder2-3b")
 DENSE_LAYERS = 2
 DENSE_SEQ = 16
+# phase 7: switch-large-128 (the paper's third evaluation model), every
+# width as published, depth cut: decoder 24 -> 4 (dense MLPs at 0 and 2,
+# MoE at 1 and 3, so the cross-layer prefetch stays real), encoder 24 -> 2;
+# its store (256 experts, 2.95 GB of bf16) at zlib level 1 as jamba's.  A
+# resident prefill of SWITCH_PROMPT tokens over seeded encoder inputs of
+# enc_seq_len frames, then NEW_TOKENS greedy ZipServer steps
+SWITCH_ARCH = "switch-large-128"
+SWITCH_LAYERS = 4
+SWITCH_ENC_LAYERS = 2
+SWITCH_PROMPT = 8
+SWITCH_ZLIB_LEVEL = 1
+# whisper-small and qwen2-vl-2b at every width and depth, resident
+# (whisper's ZipServer too): prompts of ENCDEC_SEQ positions; qwen2-vl's
+# M-RoPE positions lay out one VLM_GRID image, then text
+WHISPER_ARCH = "whisper-small"
+WHISPER_STEPS = 4
+VLM_ARCH = "qwen2-vl-2b"
+VLM_GRID = (3, 4)
+ENCDEC_SEQ = 16
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12     # dense bf16 tensor-core peak
 # ragged GEMM vs its f32 plain version: both sum in f32 but in another
@@ -753,19 +798,21 @@ def kernel_phase(torch, np, dev, cfg):
     return res
 
 
-def jamba_kernel_shapes(torch, np, dev):
-    """Kernels 1-3 at jamba-v0.1-52b's expert shapes (d 4096, f 14336; a
-    decode step of 4 tokens x top-2), each against its plain version and
-    timed with ``med_ms`` beside its plain version and its bound: the
-    splice of one 58.7 M-element tensor, the splice-admit into slot 5 of
-    an 8-slot slab (2.82 GB), and the ragged GEMM over 8 (token, expert)
-    pairs, one 8-row tile each, against a 16-expert stack (gate/up, then
-    down with K = 14336).  Returns each kernel's numbers."""
+def expert_kernel_shapes(torch, np, dev, arch: str, label: str, ts):
+    """Kernels 1-3 at `arch`'s expert shapes, each against its plain
+    version and timed with ``med_ms`` beside its plain version and its
+    bound: the splice of one [d_model, d_expert] tensor, the splice-admit
+    into an 8-slot slab, and the ragged GEMM over the one-row 8-row tiles
+    of slot vector `ts` (a decode step's (token, expert) pairs) against the
+    layer's whole expert stack, d -> f, then f -> d with K = d_expert.
+    jamba-v0.1-52b: d 4096, f 14336, 4 tokens x top-2 = 8 tiles over 16
+    experts; switch-large-128: d 1024, f 2816, 4 tokens x top-1 = 4 tiles
+    over 128.  Returns each kernel's numbers."""
     from repro_torch.configs import get_config
     from repro_torch.core import bitfield
     from repro_torch.kernels import _build, moe_gemm, recovery, ref
     lib = _build.library()
-    cfg = get_config(JAMBA_ARCH)
+    cfg = get_config(arch)
     d, f, n_e = cfg.d_model, cfg.d_expert, cfg.n_experts
     g = torch.Generator(device=dev).manual_seed(SEED)
     rate = sleep_rate(torch)
@@ -775,7 +822,9 @@ def jamba_kernel_shapes(torch, np, dev):
     def timed(fn):
         return med_ms(fn, torch, rate)
 
-    n_sets = 4     # 470 MB of planes, far past the L2
+    # rotate over > 60 MB of planes, far past the L2 (jamba: 4 sets of
+    # 117 MB; switch: 11 of 5.8 MB)
+    n_sets = max(4, -(-60_000_000 // (2 * d * f)))
     sets = [(torch.randint(0, 256, (d * f,), dtype=torch.uint8, device=dev,
                            generator=g),
              torch.randint(0, 256, (d * f,), dtype=torch.uint8, device=dev,
@@ -833,10 +882,6 @@ def jamba_kernel_shapes(torch, np, dev):
                                shape=[cap, d, f])
     del buf, sets
 
-    # 4 tokens x top-2 = 8 (token, expert) pairs, one tile each; 7
-    # distinct experts (one chosen twice)
-    ts = np.asarray([0, 3, 5, 9, 12, 14, 15, 3], np.int32)
-
     def one_row_per_tile(dd):
         x = torch.zeros((ts.size * 8, dd), dtype=torch.bfloat16, device=dev)
         x[::8] = torch.randn((ts.size, dd), device=dev, generator=g).to(
@@ -845,14 +890,19 @@ def jamba_kernel_shapes(torch, np, dev):
 
     res["slab_gemm"] = ragged_gemm_rows(torch, dev, timed, g, d, f, n_e, ts,
                                         one_row_per_tile,
-                                        "jamba shapes: ragged GEMM")
+                                        f"{label} shapes: ragged GEMM")
     for name, r in res.items():
-        print(f"jamba shapes: {name} {r['ms']:.6g} ms on the device (plain "
-              f"{r['plain_ms']:.6g} ms), bound {r['bound_ms']:.6g} ms "
-              f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.4g} of the "
-              f"bound; the host takes {r['host_ms']:.6g} ms to enqueue one",
-              flush=True)
-    print(json.dumps({"kernels_at_jamba_shapes": res}), flush=True)
+        lib_ms = "" if r["library_ms"] is None else \
+            f", torch.bmm {r['library_ms']:.6g} ms"
+        print(f"{label} shapes: {name} {r['ms']:.6g} ms on the device "
+              f"(plain {r['plain_ms']:.6g} ms{lib_ms}), bound "
+              f"{r['bound_ms']:.6g} ms ({r['bound_by']}), "
+              f"{r['bound_ms'] / r['ms']:.4g} of the bound; the host takes "
+              f"{r['host_ms']:.6g} ms to enqueue one", flush=True)
+    print(json.dumps({f"kernels_at_{label}_shapes": res}), flush=True)
+    del g
+    gc.collect()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -894,15 +944,18 @@ def ptxas_usage(_build):
 # ----------------------------------------------------------------------------
 # phase 3: the main path at full width
 # ----------------------------------------------------------------------------
-def serve(torch, zs, prompt, steps, t_len, before_step=None, drain=False):
-    """Greedy decode of `prompt` for `steps` tokens; the launch counters are
+def serve(torch, zs, prompt, steps, t_len, before_step=None, drain=False,
+          caches=None, start=0):
+    """Greedy decode of `prompt` for `steps` tokens from position `start`
+    (over `caches`, or an empty cache of `t_len`); the launch counters are
     reset just before the first step and read just after the last (after
     the prefetch jobs still in flight finished, with `drain`).  A step
     ends when its token is known on the host; ``before_step(zs, i)`` runs
     before step i, outside its time.  Returns the step inputs, logits, host
-    step times, served tokens, launches and stats."""
+    step times, served tokens, launches, stats and the final caches."""
     from repro_torch.kernels import _build
-    caches = zs.init_cache(prompt.shape[0], t_len)
+    if caches is None:
+        caches = zs.init_cache(prompt.shape[0], t_len)
     tok = prompt
     inputs, logits, times = [], [], []
     torch.cuda.synchronize()
@@ -912,7 +965,7 @@ def serve(torch, zs, prompt, steps, t_len, before_step=None, drain=False):
             before_step(zs, i)
         t1 = time.perf_counter()
         inputs.append(tok)
-        lg, caches = zs.decode_step(tok, caches, i)
+        lg, caches = zs.decode_step(tok, caches, start + i)
         tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
         tok.cpu()
         times.append(time.perf_counter() - t1)
@@ -924,7 +977,8 @@ def serve(torch, zs, prompt, steps, t_len, before_step=None, drain=False):
     served = torch.cat(inputs[1:] + [tok], dim=1).cpu().numpy()
     return dict(inputs=inputs, logits=logits, times=times, served=served,
                 launches=launches, stats=list(zs.stats),
-                overlap=zs.overlap_summary(), cache=zs.cache_summary())
+                overlap=zs.overlap_summary(), cache=zs.cache_summary(),
+                caches=caches)
 
 
 def path_numbers(run, n_moe: int):
@@ -940,9 +994,11 @@ def path_numbers(run, n_moe: int):
             "hit_rate": run["cache"].get("hit_rate")}
 
 
-def check_resident(torch, np, dev, cfg, params, run, what: str):
+def check_resident(torch, np, dev, cfg, params, run, what: str,
+                   caches=None, start=0):
     """Hold a served run's logits against the resident model under teacher
-    forcing.  Rows are independent requests.  A token whose router picks
+    forcing, from position `start` over `caches` (or an empty cache).
+    Rows are independent requests.  A token whose router picks
     another expert set in the two models (a near-tie in router
     probabilities flipped by bf16 noise) takes another FFN, and its row's
     KV cache differs from then on: such a row is reported and left out of
@@ -950,14 +1006,15 @@ def check_resident(torch, np, dev, cfg, params, run, what: str):
     from repro_torch.models import decode_step, init_cache
     n_moe = len(cfg_moe_layers(cfg))
     steps = len(run["inputs"])
-    rcache = init_cache(cfg, BATCH, steps + 1, device=dev)
+    rcache = init_cache(cfg, BATCH, steps + 1, device=dev) \
+        if caches is None else caches
     served_routes = [s["routes"] for s in run["stats"]]
     live = np.ones(BATCH, bool)
     worst, agree, compared, flips = 0.0, 0, 0, []
     for i in range(steps):
         ids = []
-        rl, rcache = decode_step(params, cfg, run["inputs"][i], rcache, i,
-                                 router_ids=ids)
+        rl, rcache = decode_step(params, cfg, run["inputs"][i], rcache,
+                                 start + i, router_ids=ids)
         for j, r_ids in enumerate(ids):
             mine = served_routes[i * n_moe + j]
             theirs = r_ids.reshape(BATCH, -1).cpu().numpy()
@@ -2388,6 +2445,257 @@ def ssm_phase(torch, np, dev, store_dir):
     return launches, numbers
 
 
+def seeded_embeds(torch, rng, shape, dev):
+    """N(0, 0.02²) inputs drawn with numpy, rounded once to bf16."""
+    return torch.from_numpy(rng.standard_normal(shape) * 0.02).to(
+        torch.bfloat16).to(dev)
+
+
+def mrope_grid(np, batch: int, seq: int, grid):
+    """[3, batch, seq] int32 M-RoPE positions: a ``grid[0] x grid[1]``
+    image (temporal 0, its row, its column) followed by text starting one
+    past the image's largest position, on all three channels."""
+    gh, gw = grid
+    n_img = gh * gw
+    pos = np.zeros((3, seq), np.int32)
+    idx = np.arange(n_img)
+    pos[1, :n_img], pos[2, :n_img] = idx // gw, idx % gw
+    pos[:, n_img:] = max(gh, gw) + np.arange(seq - n_img)
+    return np.ascontiguousarray(np.broadcast_to(pos[:, None],
+                                                (3, batch, seq)))
+
+
+def logit_rel(torch, got, want) -> float:
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all()),
+          "non-finite logits")
+    return (got.float() - want.float()).abs().max().item() \
+        / want.float().abs().max().item()
+
+
+def switch_phase(torch, np, dev, store_dir):
+    """switch-large-128 at every published width, depth cut to
+    SWITCH_LAYERS decoder and SWITCH_ENC_LAYERS encoder layers: its store
+    (zlib level SWITCH_ZLIB_LEVEL) checked lossless; a resident prefill of
+    SWITCH_PROMPT tokens over seeded encoder inputs; then ``switch-ragged``,
+    NEW_TOKENS greedy ``ZipServer.decode_step``s over the prefill's caches
+    (cross-attention over their ``xkv``), against the resident model under
+    teacher forcing; the caches' ``xkv`` must come back unchanged.
+    Returns the path's launches and numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.codec import ZlibCodec
+    from repro_torch.core.store import build_store
+    from repro_torch.models import init_params, prefill
+    from repro_torch.serving.kv_cache import grow_cache
+    from repro_torch.serving.zipserve import ZipServer
+    full = get_config(SWITCH_ARCH)
+    cfg = dataclasses.replace(full, n_layers=SWITCH_LAYERS,
+                              n_enc_layers=SWITCH_ENC_LAYERS)
+    moe = cfg_moe_layers(cfg)
+    check(moe == [1, 3], f"switch MoE layers {moe}")
+    print(f"config {SWITCH_ARCH}: d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"/ {cfg.n_kv_heads} KV x {cfg.head_dim} (pos {cfg.pos}, "
+          f"{cfg.norm}, {cfg.act}); {cfg.n_experts} experts top-"
+          f"{cfg.top_k}, d_expert {cfg.d_expert}, dense d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, enc_seq_len {cfg.enc_seq_len}; depth cut "
+          f"decoder {full.n_layers} -> {SWITCH_LAYERS} (MoE layers {moe}), "
+          f"encoder {full.n_enc_layers} -> {SWITCH_ENC_LAYERS}", flush=True)
+    params = init_params(cfg, seed=SEED, device=dev)
+    t0 = time.perf_counter()
+    store = build_store(params, cfg, store_dir, device=dev,
+                        codec=ZlibCodec(SWITCH_ZLIB_LEVEL))
+    nums = {"build_store_s": time.perf_counter() - t0,
+            "store_ratio": store.ratio(),
+            "store_bf16_bytes": sum(g.full_bytes
+                                    for g in store.groups.values())}
+    print(f"switch build_store: codec {store.codec.name} at level "
+          f"{SWITCH_ZLIB_LEVEL}, {len(store.groups)} groups, "
+          f"{nums['store_bf16_bytes']} B of bf16, {nums['build_store_s']:.1f} "
+          f"s, ratio {nums['store_ratio']:.4f}", flush=True)
+    check_lossless(torch, store, params, cfg, dev)
+    store.close()
+    rng = np.random.default_rng(SEED)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (BATCH, SWITCH_PROMPT))).to(dev)
+    enc = seeded_embeds(torch, rng, (BATCH, cfg.enc_seq_len, cfg.d_model),
+                        dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, caches = prefill(params, cfg, prompt, enc_embeds=enc)
+    torch.cuda.synchronize()
+    nums["prefill_s"] = time.perf_counter() - t0
+    check(bool(torch.isfinite(lg).all()), "switch: non-finite prefill logits")
+    t_len = SWITCH_PROMPT + NEW_TOKENS
+    served = grow_cache(cfg, caches, BATCH, t_len)
+    resident = grow_cache(cfg, caches, BATCH, t_len)
+    tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+    gc.collect()
+    zs = ZipServer(params, cfg, store_dir, L=6, prefetch=True, device=dev,
+                   pool_sizes=POOLS_SMALL, device_cache=True,
+                   ffn_impl="ragged")
+    try:
+        run = serve(torch, zs, tok, NEW_TOKENS, t_len, caches=served,
+                    start=SWITCH_PROMPT)
+    finally:
+        zs.close()
+    same = all(torch.equal(c["xkv"][n].view(torch.int16),
+                           p["xkv"][n].view(torch.int16))
+               for c, p in zip(run["caches"], caches) for n in ("k", "v"))
+    check(same, "switch-ragged: the caches' cross-attention K/V changed "
+          "while serving")
+    nums.update(path_numbers(run, len(moe)))
+    nums["splice_launches"] = run["launches"]["splice"] + \
+        run["launches"]["splice_admit"]
+    nums["logit_rel_err"] = check_resident(
+        torch, np, dev, cfg, params, run, "switch-ragged", caches=resident,
+        start=SWITCH_PROMPT)
+    nums["xkv_unchanged"] = same
+    print(f"switch-ragged: prefill {nums['prefill_s']:.3f} s over "
+          f"{cfg.enc_seq_len} encoder frames; served "
+          f"{run['served'].tolist()}; TPOT {nums['tpot_ms']} ms, blocked "
+          f"{nums['blocked_ms']} ms per step, hit rate {nums['hit_rate']}, "
+          f"splice ops {nums['splice_ops']}, h2d {nums['h2d_bytes']} B; "
+          f"xkv unchanged: {same}; launches {run['launches']}; "
+          f"{json.dumps(nums)}", flush=True)
+    return run["launches"], nums
+
+
+def whisper_check(torch, np, dev, store_dir):
+    """whisper-small at every width and depth: resident ``prefill(S-1)`` +
+    ``decode_step`` against ``forward(S)`` (LOGIT_REL_TOL), then
+    ``ZipServer.decode_step`` over the prefill's caches bit-identical to
+    the resident ``decode_step`` for WHISPER_STEPS greedy steps, with no
+    kernel launched (its FFNs are dense and stay resident; the store holds
+    them as groups ``(layer, 0)``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.codec import ZlibCodec
+    from repro_torch.core.store import build_store
+    from repro_torch.models import decode_step, forward, init_params
+    from repro_torch.models import prefill
+    from repro_torch.serving.kv_cache import grow_cache
+    from repro_torch.serving.zipserve import ZipServer
+    cfg = get_config(WHISPER_ARCH)
+    params = init_params(cfg, seed=SEED, device=dev)
+    rng = np.random.default_rng(SEED)
+    S = ENCDEC_SEQ
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, S))
+                            ).to(dev)
+    enc = seeded_embeds(torch, rng, (BATCH, cfg.enc_seq_len, cfg.d_model),
+                        dev)
+    want, _, _ = forward(params, cfg, toks, enc_embeds=enc)
+    _, caches = prefill(params, cfg, toks[:, :S - 1], enc_embeds=enc)
+    t_len = S + WHISPER_STEPS
+    served, resident = (grow_cache(cfg, caches, BATCH, t_len)
+                        for _ in range(2))
+    got, _ = decode_step(params, cfg, toks[:, S - 1:],
+                         grow_cache(cfg, caches, BATCH, t_len), S - 1)
+    rel = logit_rel(torch, got[:, 0], want[:, -1])
+    check(rel <= LOGIT_REL_TOL, f"whisper: prefill + decode_step differs "
+          f"from forward by {rel} of max |logit| (> {LOGIT_REL_TOL})")
+    store = build_store(params, cfg, store_dir, device=dev,
+                        codec=ZlibCodec(SWITCH_ZLIB_LEVEL))
+    n_groups = len(store.groups)
+    check_lossless(torch, store, params, cfg, dev)
+    store.close()
+    zs = ZipServer(params, cfg, store_dir, L=6, prefetch=True, device=dev,
+                   pool_sizes=POOLS_SMALL, device_cache=True,
+                   ffn_impl="ragged")
+    try:
+        run = serve(torch, zs, toks[:, S - 1:], WHISPER_STEPS, t_len,
+                    caches=served, start=S - 1)
+    finally:
+        zs.close()
+    check(not any(run["launches"].values()),
+          f"whisper: kernels launched with no routed expert: "
+          f"{run['launches']}")
+    same = True
+    for i, (inp, lg) in enumerate(zip(run["inputs"], run["logits"])):
+        rl, resident = decode_step(params, cfg, inp, resident, S - 1 + i)
+        same = same and torch.equal(lg.view(torch.int16),
+                                    rl.view(torch.int16))
+    check(same, "whisper: ZipServer.decode_step differs from the resident "
+          "model although both run the same layers")
+    print(f"whisper-small: d_model {cfg.d_model}, {cfg.n_heads} heads x "
+          f"{cfg.head_dim}, {cfg.n_enc_layers} + {cfg.n_layers} layers "
+          f"({cfg.norm}, {cfg.act}), enc_seq_len {cfg.enc_seq_len}, vocab "
+          f"{cfg.vocab_size}: prefill({S - 1}) + decode_step vs "
+          f"forward({S}) max |diff| / max |logit| = {rel:.4g} (tolerance "
+          f"{LOGIT_REL_TOL}); store of {n_groups} dense FFN groups; "
+          f"ZipServer over {WHISPER_STEPS} steps bit-identical to the "
+          f"resident model: {same}, TPOT "
+          f"{statistics.mean(run['times'][1:]) * 1e3:.4f} ms, launches "
+          f"{run['launches']}", flush=True)
+    return {"prefill_decode_rel": rel, "zipserver_bit_identical": same,
+            "zipserver_tpot_ms": statistics.mean(run["times"][1:]) * 1e3}
+
+
+def vlm_check(torch, np, dev):
+    """qwen2-vl-2b at every width and depth, fed seeded embeddings with
+    M-RoPE positions of one VLM_GRID image then text: resident
+    ``prefill(S-1)`` + ``decode_step`` against ``forward(S)``
+    (LOGIT_REL_TOL).  The same forward with the plain sequence index on
+    every channel is printed beside it, to show the channels matter."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, forward, init_params
+    from repro_torch.models import prefill
+    from repro_torch.serving.kv_cache import grow_cache
+    cfg = get_config(VLM_ARCH)
+    params = init_params(cfg, seed=SEED, device=dev)
+    rng = np.random.default_rng(SEED)
+    S = ENCDEC_SEQ
+    emb = seeded_embeds(torch, rng, (BATCH, S, cfg.d_model), dev)
+    pos3 = torch.from_numpy(mrope_grid(np, BATCH, S, VLM_GRID)).to(dev)
+    check(not torch.equal(pos3[0], pos3[1])
+          and not torch.equal(pos3[1], pos3[2]),
+          "qwen2-vl: the M-RoPE channels do not differ")
+    want, _, _ = forward(params, cfg, embeds=emb, mrope_positions=pos3)
+    plain, _, _ = forward(params, cfg, embeds=emb)
+    _, caches = prefill(params, cfg, embeds=emb[:, :S - 1],
+                        mrope_positions=pos3[:, :, :S - 1])
+    caches = grow_cache(cfg, caches, BATCH, S)
+    got, _ = decode_step(params, cfg, None, caches, S - 1,
+                         embeds=emb[:, S - 1:],
+                         mrope_positions=pos3[:, :, S - 1:])
+    rel = logit_rel(torch, got[:, 0], want[:, -1])
+    moved = logit_rel(torch, plain, want)
+    check(rel <= LOGIT_REL_TOL, f"qwen2-vl: prefill + decode_step differs "
+          f"from forward by {rel} of max |logit| (> {LOGIT_REL_TOL})")
+    print(f"qwen2-vl-2b: d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} KV x {cfg.head_dim}, {cfg.n_layers} layers, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; M-RoPE positions of a "
+          f"{VLM_GRID[0]} x {VLM_GRID[1]} image then text: prefill({S - 1}) "
+          f"+ decode_step vs forward({S}) max |diff| / max |logit| = "
+          f"{rel:.4g} (tolerance {LOGIT_REL_TOL}); the forward with plain "
+          f"positions moves the logits by {moved:.4g} of max |logit|",
+          flush=True)
+    return {"prefill_decode_rel": rel, "plain_rope_moves": moved}
+
+
+def encdec_phase(torch, np, dev, store_dir):
+    """Phase 7: switch-ragged (``switch_phase``), whisper-small
+    (``whisper_check``) and qwen2-vl-2b (``vlm_check``).  Returns the
+    served path's launches and the phase's numbers."""
+    numbers, walls = {}, {}
+    t0 = time.perf_counter()
+    launches, numbers["switch-ragged"] = switch_phase(torch, np, dev,
+                                                      store_dir)
+    walls["switch"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smoke_store_whisper_",
+                                     dir=ROOT / "build") as tmp:
+        numbers["whisper"] = whisper_check(torch, np, dev, tmp)
+    walls["whisper"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    numbers["qwen2-vl"] = vlm_check(torch, np, dev)
+    walls["qwen2-vl"] = time.perf_counter() - t0
+    numbers["wall_s"] = walls
+    print(f"phase 7 parts (s): {json.dumps(walls)}", flush=True)
+    return {"switch-ragged": launches}, numbers
+
+
 def cfg_moe_layers(cfg):
     return [i for i in range(cfg.n_layers) if cfg.moe_layer(i)]
 
@@ -2437,7 +2745,13 @@ def main():
     walls = {}
     t0 = time.perf_counter()
     kres = kernel_phase(torch, np, dev, cfg)
-    jamba_kernel_shapes(torch, np, dev)
+    # 4 tokens x top-2 = 8 (token, expert) pairs, one tile each; 7
+    # distinct experts (one chosen twice)
+    expert_kernel_shapes(torch, np, dev, JAMBA_ARCH, "jamba", np.asarray(
+        [0, 3, 5, 9, 12, 14, 15, 3], np.int32))
+    # 4 tokens x top-1 = 4 tiles, 4 distinct experts of 128
+    expert_kernel_shapes(torch, np, dev, SWITCH_ARCH, "switch", np.asarray(
+        [7, 40, 93, 127], np.int32))
     gc.collect()
     torch.cuda.empty_cache()
     walls["2"] = phase_wall("2", t0)
@@ -2457,6 +2771,14 @@ def main():
         ssm_launches, e2e["ssm"] = ssm_phase(torch, np, dev, tmp)
     launches.update(ssm_launches)
     walls["6"] = phase_wall("6", t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smoke_store_switch_",
+                                     dir=ROOT / "build") as tmp:
+        encdec_launches, e2e["encdec"] = encdec_phase(torch, np, dev, tmp)
+    launches.update(encdec_launches)
+    walls["7"] = phase_wall("7", t0)
     e2e["phase_wall_s"] = walls
     # every kernel runs on some path, and every path runs its kernels; a
     # kernel's launches are its count on the first path that runs it

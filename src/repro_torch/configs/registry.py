@@ -1,12 +1,12 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-Trimmed to the architectures the port serves so far: the dense GQA family
+Every architecture the JAX package registers: the dense GQA family
 (granite-8b, deepseek-coder-33b, starcoder2-3b, qwen3-14b), the GQA MoE
 family (qwen2-moe-a2.7b, with the paper's qwen1.5-moe-a2.7b name for it),
 the MLA MoE family (deepseekv2-lite, deepseek-v2-236b), the SSM family
-(mamba2-370m) and the hybrid family (jamba-v0.1-52b).  Of the JAX
-package's architectures, whisper-small (encoder-decoder), qwen2-vl-2b
-(M-RoPE) and switch-large-128 are not ported yet.
+(mamba2-370m), the hybrid family (jamba-v0.1-52b), the encoder-decoders
+with learned positions (switch-large-128, the paper's third evaluation
+model, and whisper-small) and M-RoPE over input embeddings (qwen2-vl-2b).
 """
 from __future__ import annotations
 
@@ -26,12 +26,16 @@ _ARCH_MODULES = {
     "deepseek-v2-236b": "deepseek_v2_236b",
     "mamba2-370m": "mamba2_370m",
     "jamba-v0.1-52b": "jamba_v01_52b",
+    "whisper-small": "whisper_small",
+    "qwen2-vl-2b": "qwen2_vl_2b",
     # paper evaluation models
     "deepseekv2-lite": "deepseekv2_lite",
     "qwen1.5-moe-a2.7b": "qwen2_moe_a27b",   # identical architecture
+    "switch-large-128": "switch_large_128",
 }
 
-PAPER_MODELS: List[str] = ["deepseekv2-lite", "qwen1.5-moe-a2.7b"]
+PAPER_MODELS: List[str] = ["deepseekv2-lite", "qwen1.5-moe-a2.7b",
+                           "switch-large-128"]
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -332,7 +332,7 @@ def main(argv=None):
     args = parse_args(argv)
     cfg = get_smoke_config(args.arch, d_model=256, n_layers=6,
                            vocab_size=2048)
-    check_supported(cfg)
+    check_supported(cfg, "rows")
     dev = resolve_device(args.device)
     params = init_params(cfg, seed=0, device=dev)
     rng = np.random.default_rng(0)

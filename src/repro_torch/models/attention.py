@@ -1,10 +1,12 @@
-"""Attention: GQA (RoPE, optional qk-norm) and MLA (DeepSeek-V2), plain
-PyTorch in f32.
+"""Attention: GQA (RoPE or M-RoPE, optional qk-norm), MLA (DeepSeek-V2)
+and the encoder-decoders' cross-attention, plain PyTorch in f32.
 
 KV cache per layer::
 
-    GQA: {"k": [B, T, Hkv, D], "v": [B, T, Hkv, D]}
-    MLA: {"ckv": [B, T, kv_lora_rank], "k_rope": [B, T, qk_rope_dim]}
+    GQA:   {"k": [B, T, Hkv, D], "v": [B, T, Hkv, D]}
+    MLA:   {"ckv": [B, T, kv_lora_rank], "k_rope": [B, T, qk_rope_dim]}
+    cross: {"k": [B, T_enc, H, D], "v": [B, T_enc, H, D]}  (the encoder's,
+           made once by :func:`cross_attn_cache` at prefill)
 
 The decode functions write the new token's K/V (MLA: its latent) into the
 cache **in place** (the JAX package returns updated copies) and still
@@ -29,12 +31,15 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.models.layers import apply_rope, dtype_of, normal
+from repro_torch.models.layers import apply_mrope, apply_rope, dtype_of, \
+    normal
 
 NEG_INF = -1e30
 
 
-def init_attn(gen, cfg, device):
+def init_attn(gen, cfg, device, cross=False):
+    """One layer's attention weights; ``cross=True``: an encoder-decoder's
+    cross-attention, GQA-shaped with ``n_heads`` K/V heads."""
     dt = dtype_of(cfg)
     d, hd = cfg.d_model, cfg.head_dim
 
@@ -45,7 +50,7 @@ def init_attn(gen, cfg, device):
     def ones(n):
         return torch.ones(n, dtype=torch.float32, device=device)
 
-    if cfg.attn == "mla":
+    if cfg.attn == "mla" and not cross:
         qk_head = cfg.qk_nope_dim + cfg.qk_rope_dim
         p = {}
         if cfg.q_lora_rank:
@@ -60,9 +65,10 @@ def init_attn(gen, cfg, device):
                             cfg.n_heads * (cfg.qk_nope_dim + cfg.v_head_dim)))
         p["wo"] = dense((cfg.n_heads * cfg.v_head_dim, d))
         return p
+    kvh = cfg.n_heads if cross else cfg.n_kv_heads
     p = {"wq": dense((d, cfg.n_heads * hd)),
-         "wk": dense((d, cfg.n_kv_heads * hd)),
-         "wv": dense((d, cfg.n_kv_heads * hd)),
+         "wk": dense((d, kvh * hd)),
+         "wv": dense((d, kvh * hd)),
          "wo": dense((cfg.n_heads * hd, d))}
     if cfg.qk_norm:
         p["q_norm"] = ones(hd)
@@ -144,9 +150,11 @@ def _chunked_gqa(q, k, v, q_chunk=Q_CHUNK):
     return torch.cat(outs, dim=1)
 
 
-def _project_qkv(p, x, cfg, positions):
-    """x: [B, S, d]; positions: [B, S] int.  Returns q [B,S,Hq,D] and k, v
-    [B,S,Hkv,D], normed and rotated."""
+def _project_qkv(p, x, cfg, positions, mrope_positions=None):
+    """x: [B, S, d]; positions: [B, S] int; mrope_positions: [3, B, S] int
+    or None.  Returns q [B,S,Hq,D] and k, v [B,S,Hkv,D], normed and
+    rotated: an M-RoPE config given its three position channels rotates
+    by them, else by `positions`."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
@@ -156,16 +164,23 @@ def _project_qkv(p, x, cfg, positions):
         q = rms_norm_headwise(p["q_norm"], q)
         k = rms_norm_headwise(p["k_norm"], k)
     if cfg.pos == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if cfg.mrope and mrope_positions is not None:
+            q = apply_mrope(q, mrope_positions, cfg.rope_theta)
+            k = apply_mrope(k, mrope_positions, cfg.rope_theta)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def gqa_forward(p, x, cfg, positions, *, causal=True, return_cache=False):
-    """Full-sequence GQA.  x: [B, S, d]; positions: [B, S] int.  Returns
-    y [B, S, d], and with `return_cache` also ``{"k", "v"}`` [B,S,Hkv,D]."""
+def gqa_forward(p, x, cfg, positions, *, causal=True, mrope_positions=None,
+                return_cache=False):
+    """Full-sequence GQA.  x: [B, S, d]; positions: [B, S] int;
+    mrope_positions: [3, B, S] or None.  ``causal=False`` is an encoder's
+    self-attention.  Returns y [B, S, d], and with `return_cache` also
+    ``{"k", "v"}`` [B,S,Hkv,D]."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    q, k, v = _project_qkv(p, x, cfg, positions, mrope_positions)
     if causal and S >= CHUNK_THRESHOLD and S % Q_CHUNK == 0:
         out = _chunked_gqa(q, k, v)
     else:
@@ -178,13 +193,14 @@ def gqa_forward(p, x, cfg, positions, *, causal=True, return_cache=False):
     return y
 
 
-def gqa_decode(p, x, cfg, cache, pos: int):
-    """x: [B, 1, d]; cache k/v: [B, T, Hkv, D]; pos: the new token's index.
-    Returns (y [B, 1, d], cache) with the cache updated in place."""
+def gqa_decode(p, x, cfg, cache, pos: int, *, mrope_positions=None):
+    """x: [B, 1, d]; cache k/v: [B, T, Hkv, D]; pos: the new token's index;
+    mrope_positions: [3, B, 1] or None.  Returns (y [B, 1, d], cache) with
+    the cache updated in place."""
     B = x.shape[0]
     T = cache["k"].shape[1]
     posv = torch.full((B, 1), int(pos), dtype=torch.int32, device=x.device)
-    q, k, v = _project_qkv(p, x, cfg, posv)
+    q, k, v = _project_qkv(p, x, cfg, posv, mrope_positions)
     cache["k"][:, pos] = k[:, 0]
     cache["v"][:, pos] = v[:, 0]
     mask = (torch.arange(T, device=x.device) <= pos)[None, None, :]  # [1,1,T]
@@ -193,7 +209,7 @@ def gqa_decode(p, x, cfg, cache, pos: int):
     return y, cache
 
 
-def gqa_decode_rows(p, x, cfg, cache, positions):
+def gqa_decode_rows(p, x, cfg, cache, positions, *, mrope_positions=None):
     """Per-row-position decode (continuous batching): each batch row is an
     independent request at its own sequence position.
 
@@ -201,11 +217,11 @@ def gqa_decode_rows(p, x, cfg, cache, positions):
     x's device (row b's new-token index).  Row b's new K/V is written at
     ``(b, positions[b])`` in place, and row b attends over cache positions
     ``<= positions[b]``: later entries (another request's stale bytes, a
-    short row's padding) get exactly zero attention weight.  Returns
-    (y [B, 1, d], cache)."""
+    short row's padding) get exactly zero attention weight;
+    mrope_positions: [3, B, 1] or None.  Returns (y [B, 1, d], cache)."""
     B = x.shape[0]
     T = cache["k"].shape[1]
-    q, k, v = _project_qkv(p, x, cfg, positions[:, None])
+    q, k, v = _project_qkv(p, x, cfg, positions[:, None], mrope_positions)
     rows = torch.arange(B, device=x.device)
     cache["k"][rows, positions] = k[:, 0]
     cache["v"][rows, positions] = v[:, 0]
@@ -373,3 +389,25 @@ def mla_decode_rows(p, x, cfg, cache, positions, *,
     y = _mla_decode_attend(p, x, cfg, q_nope, q_rope, cache["ckv"],
                            cache["k_rope"], mask, absorb)
     return y, cache
+
+
+# ----------------------------------------------------------------------------
+# Cross-attention (encoder-decoder)
+# ----------------------------------------------------------------------------
+def cross_attn_cache(p, enc_out, cfg):
+    """The encoder's K/V for one decoder layer, made once at prefill.
+    enc_out: [B, T, d] -> ``{"k", "v"}`` [B, T, H, D]."""
+    B, T, _ = enc_out.shape
+    hd = cfg.head_dim
+    return {"k": (enc_out @ p["wk"]).reshape(B, T, cfg.n_heads, hd),
+            "v": (enc_out @ p["wv"]).reshape(B, T, cfg.n_heads, hd)}
+
+
+def cross_attn(p, x, cfg, kv):
+    """x: [B, S, d] attends over every encoder position of `kv` (no mask,
+    no rotation).  Returns y [B, S, d]."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
+    out = _gqa_scores_to_out(q, kv["k"], kv["v"], None)
+    return out.reshape(B, S, cfg.n_heads * hd) @ p["wo"]

@@ -65,6 +65,31 @@ def apply_rope(x, positions, theta):
     return out.to(x.dtype)
 
 
+def apply_mrope(x, positions3, theta, sections=(16, 24, 24)):
+    """Qwen2-VL multimodal RoPE.  x: [B, S, H, D]; positions3: [3, B, S]
+    int (temporal, height, width channels).  `sections` gives the number
+    of frequency pairs each channel rotates (summing to D/2); for another
+    head dim they are rescaled in proportion, the last taking the rest."""
+    d = x.shape[-1]
+    half = d // 2
+    secs = list(sections)
+    if sum(secs) != half:
+        base = [s / sum(sections) for s in sections]
+        secs = [int(round(b * half)) for b in base]
+        secs[-1] = half - secs[0] - secs[1]
+    freqs = torch.from_numpy(rope_freqs(d, theta).astype(np.float32)).to(
+        x.device)                                             # [D/2]
+    chan = torch.repeat_interleave(torch.arange(3, device=x.device),
+                                   torch.tensor(secs, device=x.device))
+    p = positions3.permute(1, 2, 0).float()                   # [B, S, 3]
+    angles = p[..., chan] * freqs                             # [B, S, D/2]
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # ----------------------------------------------------------------------------
 # Dense MLP (SwiGLU or GELU)
 # ----------------------------------------------------------------------------
@@ -100,8 +125,19 @@ def apply_mlp(p, x, cfg):
 # Embedding / LM head
 # ----------------------------------------------------------------------------
 def init_embed(gen, cfg, device):
-    return {"tok": normal(gen, (cfg.vocab_size, cfg.d_model), 0.02,
-                          dtype_of(cfg), device)}
+    """``tok`` [V, d] where the model embeds tokens; with learned positions
+    also ``pos``, one row per position: ``max(enc_seq_len, 32768)`` rows
+    for an encoder-decoder (its encoder reads the table too), else
+    32768."""
+    p = {}
+    if cfg.embed_inputs:
+        p["tok"] = normal(gen, (cfg.vocab_size, cfg.d_model), 0.02,
+                          dtype_of(cfg), device)
+    if cfg.pos == "learned":
+        rows = max(cfg.enc_seq_len, 32768) if cfg.encoder_decoder else 32768
+        p["pos"] = normal(gen, (rows, cfg.d_model), 0.02, dtype_of(cfg),
+                          device)
+    return p
 
 
 def init_lm_head(gen, cfg, device):

@@ -1,20 +1,29 @@
-"""Model facade: init / init_cache / forward / prefill / decode_step for
-decoder-only stacks.  Every layer is ``x += mixer(norm(x)); x += ffn(norm(x))``
-with mixer ∈ {GQA or MLA attention, Mamba2} and ffn ∈ {MoE, dense MLP,
-none}: dense and MoE decoders, the SSM family (mamba2, every layer a
-Mamba2 mixer with no FFN) and the hybrid family (jamba's attention every
-``attn_every`` layers, Mamba2 elsewhere).
+"""Model facade: init / init_cache / forward / prefill / decode_step.
+Every decoder layer is ``x += mixer(norm(x)); x += ffn(norm(x))`` with
+mixer ∈ {GQA or MLA attention, Mamba2} and ffn ∈ {MoE, dense MLP, none}:
+dense and MoE decoders, the SSM family (mamba2, every layer a Mamba2 mixer
+with no FFN) and the hybrid family (jamba's attention every ``attn_every``
+layers, Mamba2 elsewhere).  An encoder-decoder (switch-large-128,
+whisper-small) runs a dense, non-causal encoder over input embeddings
+first, and each decoder layer adds ``x += cross_attn(norm_x(x))`` over the
+encoder's K/V between its mixer and its FFN; its positions are a learned
+table added to the inputs.  An M-RoPE model (qwen2-vl-2b) takes input
+embeddings and three position channels instead of tokens.
 
 Parameters are a plain dict with a **per-layer list**, not the JAX
 package's scanned stack::
 
-    {"embed": {"tok": [V, d]},
-     "layers": [{"norm1", "attn" | "mamba", ["norm2", "ffn"]}, ...],
+    {"embed": {["tok": [V, d]], ["pos": [P, d]]},
+     ["encoder": [{"norm1", "attn", "norm2", "ffn"}, ...], "enc_norm",]
+     "layers": [{"norm1", "attn" | "mamba", ["norm_x", "xattn"],
+                 ["norm2", "ffn"]}, ...],
      "final_norm": {"scale"}, "lm_head": {"w": [d, V]}}
 
 and the caches a per-layer list of ``{"kv": ...}`` (attention) or
-``{"ssm": {"state", "conv"}}`` (Mamba2).  ``init_params`` draws them from
-a seeded ``torch.Generator`` (on the target device);
+``{"ssm": {"state", "conv"}}`` (Mamba2), an encoder-decoder's with the
+cross-attention's ``"xkv": {"k", "v"}`` [B, enc_seq_len, H, D] beside.
+``init_params`` draws the parameters from a seeded ``torch.Generator`` (on
+the target device);
 ``repro_torch.convert.params_from_jax`` builds the same structure from the
 JAX package's parameter tree.  :func:`prefill` followed by
 :func:`decode_step` is the fully resident model that the serving paths
@@ -22,8 +31,9 @@ are checked against.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -31,8 +41,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.layers import (apply_mlp, apply_norm, init_embed,
-                                       init_lm_head, init_mlp, init_norm)
+from repro_torch.models.layers import (apply_mlp, apply_norm, dtype_of,
+                                       init_embed, init_lm_head, init_mlp,
+                                       init_norm)
 
 
 def stack_layout(cfg):
@@ -64,18 +75,34 @@ def ffn_kind(cfg, idx: int) -> str:
     return "mlp" if cfg.d_ff else "none"
 
 
-def check_supported(cfg):
-    """Raise ``NotImplementedError`` for a config the port does not serve:
-    every entry point that takes a config calls this before any work."""
-    fam = cfg.family
-    ok = (fam in ("moe", "dense", "ssm", "hybrid")
-          and not cfg.encoder_decoder and not cfg.mrope
-          and not cfg.tie_embeddings and cfg.embed_inputs)
+def enc_config(cfg):
+    """An encoder-decoder's encoder stack: dense, ``n_enc_layers`` deep."""
+    return dataclasses.replace(cfg, n_layers=cfg.n_enc_layers, first_dense=0,
+                               n_experts=0, top_k=0, n_shared_experts=0)
+
+
+def _model_refusal(cfg) -> Optional[str]:
+    fam, attn = cfg.family, cfg.attn
+    if cfg.tie_embeddings:
+        return "tied embeddings are not ported"
     if fam == "ssm":           # no attention layer at all
-        ok = ok and cfg.attn == "none" and cfg.pos == "none"
+        ok = attn == "none" and cfg.pos == "none" and cfg.embed_inputs \
+            and not (cfg.encoder_decoder or cfg.mrope)
+    elif cfg.encoder_decoder:
+        # switch-large-128 and whisper-small: GQA decoders over a dense
+        # encoder, learned positions, token inputs to the decoder
+        ok = fam != "hybrid" and attn == "gqa" \
+            and cfg.pos == "learned" and cfg.embed_inputs \
+            and not cfg.mrope and cfg.n_enc_layers > 0 \
+            and cfg.enc_seq_len > 0
     else:
-        ok = ok and cfg.attn in ("gqa", "mla") and (
+        ok = attn in ("gqa", "mla") and (
             cfg.pos == "rope" or (fam == "hybrid" and cfg.pos == "none"))
+        if cfg.mrope:          # qwen2-vl-2b: rotates GQA heads only
+            ok = ok and attn == "gqa" and cfg.pos == "rope" \
+                and fam != "hybrid"
+        # input embeddings come with M-RoPE positions (qwen2-vl-2b)
+        ok = ok and (cfg.embed_inputs or cfg.mrope)
     if fam in ("ssm", "hybrid"):
         # a Mamba2 mixer needs a state, whole heads and whole groups
         ok = ok and cfg.ssm_state > 0 and cfg.ssm_headdim > 0 \
@@ -83,15 +110,64 @@ def check_supported(cfg):
             and cfg.ssm_groups > 0 and cfg.ssm_heads % cfg.ssm_groups == 0 \
             and (fam == "ssm" or cfg.attn_every > 0)
     if not ok:
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves decoder-only dense and MoE GQA/MLA "
-            f"RoPE models, Mamba2 SSMs and attention/Mamba2 hybrids so far")
+        return ("the port serves dense and MoE GQA/MLA RoPE decoders, "
+                "M-RoPE GQA decoders over input embeddings, encoder-decoders "
+                "of GQA layers with learned positions, Mamba2 SSMs and "
+                "attention/Mamba2 hybrids")
+    return None
+
+
+def refusal(cfg, entry: str = "model") -> Optional[str]:
+    """Why `entry` does not take `cfg`, or None.  The one place that says
+    which entry point takes which config:
+
+    * ``"model"``: the resident model (``init_params``, ``init_cache``,
+      ``forward``/``prefill``/``decode_step``), the converter and the
+      store — every family above;
+    * ``"zipserver"``: ``ZipServer`` and its ``decode_step`` — not a config
+      fed input embeddings or M-RoPE positions;
+    * ``"rows"``: continuous batching and the front end
+      (``ZipServer.decode_rows``, ``KVPagePool``, ``BatchServer`` and the
+      CLI) — neither those nor an encoder-decoder.
+
+    The JAX package has no correct path for what the last two refuse: its
+    ``ZipServer`` embeds tokens only (an embeddings-input config has no
+    ``embed.tok``) and rotates by the plain position, its ``decode_rows``
+    drops the cross-attention, and its ``BatchServer`` and CLI prefill
+    token prompts with no encoder inputs."""
+    assert entry in ("model", "zipserver", "rows"), entry
+    why = _model_refusal(cfg)
+    if why is None and entry != "model" and (cfg.mrope
+                                             or not cfg.embed_inputs):
+        why = ("input embeddings and M-RoPE positions are served by the "
+               "resident model only: the JAX package's ZipServer, "
+               "BatchServer and CLI embed tokens and rotate by the plain "
+               "position, so there is no reference path to serve them")
+    if why is None and entry == "rows" and cfg.encoder_decoder:
+        why = ("an encoder-decoder is served by the resident model and "
+               "ZipServer.decode_step only: the JAX package's decode_rows "
+               "drops the cross-attention and its BatchServer and CLI take "
+               "no encoder inputs, so there is no reference path to serve "
+               "it")
+    return None if why is None else f"{cfg.name}: {why}"
+
+
+def check_supported(cfg, entry: str = "model"):
+    """Raise ``NotImplementedError`` for a config `entry` does not take
+    (see :func:`refusal`): every entry point that takes a config calls
+    this before any work."""
+    why = refusal(cfg, entry)
+    if why is not None:
+        raise NotImplementedError(why)
 
 
 # ----------------------------------------------------------------------------
 # init
 # ----------------------------------------------------------------------------
-def init_layer(gen, cfg, idx: int, device) -> Dict[str, Any]:
+def init_layer(gen, cfg, idx: int, device, cross: bool = False
+               ) -> Dict[str, Any]:
+    """Layer `idx`'s weights; ``cross=True`` adds an encoder-decoder's
+    ``norm_x`` and cross-attention ``xattn``."""
     p: Dict[str, Any] = {"norm1": init_norm(cfg, device)}
     if mixer_kind(cfg, idx) == "attn":
         p["attn"] = attn_lib.init_attn(gen, cfg, device)
@@ -102,6 +178,9 @@ def init_layer(gen, cfg, idx: int, device) -> Dict[str, Any]:
         p["norm2"] = init_norm(cfg, device)
         p["ffn"] = (moe_lib.init_moe(gen, cfg, device) if fk == "moe"
                     else init_mlp(gen, cfg, device))
+    if cross:
+        p["norm_x"] = init_norm(cfg, device)
+        p["xattn"] = attn_lib.init_attn(gen, cfg, device, cross=True)
     return p
 
 
@@ -112,7 +191,13 @@ def init_params(cfg, seed: int = 0, device=None) -> Dict[str, Any]:
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     p: Dict[str, Any] = {"embed": init_embed(gen, cfg, dev)}
-    p["layers"] = [init_layer(gen, cfg, i, dev) for i in range(cfg.n_layers)]
+    if cfg.encoder_decoder:
+        ecfg = enc_config(cfg)
+        p["encoder"] = [init_layer(gen, ecfg, i, dev)
+                        for i in range(ecfg.n_layers)]
+        p["enc_norm"] = init_norm(cfg, dev)
+    p["layers"] = [init_layer(gen, cfg, i, dev, cross=cfg.encoder_decoder)
+                   for i in range(cfg.n_layers)]
     p["final_norm"] = init_norm(cfg, dev)
     p["lm_head"] = init_lm_head(gen, cfg, dev)
     return p
@@ -121,10 +206,18 @@ def init_params(cfg, seed: int = 0, device=None) -> Dict[str, Any]:
 def init_layer_cache(cfg, idx: int, batch: int, length: int, device
                      ) -> Dict[str, Any]:
     """Layer `idx`'s empty cache: ``{"kv": ...}`` of `length` tokens, or a
-    Mamba2 layer's sequence-free ``{"ssm": {"state", "conv"}}``."""
+    Mamba2 layer's sequence-free ``{"ssm": {"state", "conv"}}``; an
+    encoder-decoder's also ``{"xkv": {"k", "v"}}`` [B, enc_seq_len, H, D]."""
+    c: Dict[str, Any] = {}
     if mixer_kind(cfg, idx) == "attn":
-        return {"kv": attn_lib.init_kv_cache(cfg, batch, length, device)}
-    return {"ssm": mamba_lib.init_ssm_cache(cfg, batch, device)}
+        c["kv"] = attn_lib.init_kv_cache(cfg, batch, length, device)
+    else:
+        c["ssm"] = mamba_lib.init_ssm_cache(cfg, batch, device)
+    if cfg.encoder_decoder:
+        shape = (batch, cfg.enc_seq_len, cfg.n_heads, cfg.head_dim)
+        c["xkv"] = {name: torch.zeros(shape, dtype=dtype_of(cfg),
+                                      device=device) for name in ("k", "v")}
+    return c
 
 
 def init_cache(cfg, batch: int, length: int, device=None) -> List[Dict]:
@@ -136,40 +229,101 @@ def init_cache(cfg, batch: int, length: int, device=None) -> List[Dict]:
 
 
 # ----------------------------------------------------------------------------
+# inputs and the encoder
+# ----------------------------------------------------------------------------
+def _decoder_inputs(p, cfg, tokens, embeds):
+    """[B, S, d] decoder inputs: the embedded tokens, or `embeds` for a
+    config fed embeddings; learned positions from 0 added."""
+    x = p["embed"]["tok"][tokens] if cfg.embed_inputs else embeds
+    if cfg.pos == "learned":
+        x = x + p["embed"]["pos"][:x.shape[1]][None]
+    return x
+
+
+def decode_inputs(p, cfg, tokens, pos: int, embeds=None):
+    """[B, 1, d] input of one decode step at position `pos`: the learned
+    position is the table's row ``min(pos, rows - 1)``."""
+    x = p["embed"]["tok"][tokens] if cfg.embed_inputs else embeds
+    if cfg.pos == "learned":
+        table = p["embed"]["pos"]
+        x = x + table[min(int(pos), table.shape[0] - 1)][None, None]
+    return x
+
+
+def encode(p, cfg, enc_embeds):
+    """An encoder-decoder's encoder: enc_embeds [B, Se, d] plus learned
+    positions through the dense, non-causal stack, then ``enc_norm``."""
+    ecfg = enc_config(cfg)
+    x = enc_embeds + p["embed"]["pos"][:enc_embeds.shape[1]][None]
+    B, Se = x.shape[:2]
+    positions = torch.arange(Se, dtype=torch.int32,
+                             device=x.device)[None].expand(B, Se)
+    for lp in p["encoder"]:
+        h = apply_norm(lp["norm1"], x, ecfg)
+        x = x + attn_lib.gqa_forward(lp["attn"], h, ecfg, positions,
+                                     causal=False)
+        x = x + apply_mlp(lp["ffn"], apply_norm(lp["norm2"], x, ecfg), ecfg)
+    return apply_norm(p["enc_norm"], x, cfg)
+
+
+def apply_cross(lp, x, cfg, xkv):
+    """A decoder layer's cross-attention step, ``x + cross_attn(norm_x(x))``
+    over the encoder's K/V (`xkv`)."""
+    hx = apply_norm(lp["norm_x"], x, cfg)
+    return x + attn_lib.cross_attn(lp["xattn"], hx, cfg, xkv)
+
+
+# ----------------------------------------------------------------------------
 # full-sequence passes
 # ----------------------------------------------------------------------------
-def forward(p, cfg, tokens, *, mode="full", moe_impl="einsum",
-            router_ids=None):
-    """Full-sequence causal pass.  tokens: [B, S] int.  Returns (logits
-    [B, S, V], caches, aux): with ``mode="prefill"`` the per-layer list of
-    caches (attention: ``{"kv": {"k", "v"}}`` of length S, with MLA the
-    latent ``{"ckv", "k_rope"}``; Mamba2: ``{"ssm": {"state", "conv"}}``
-    after the last token), else None; aux is the summed load-balance loss
-    of the MoE layers.  A Mamba2 stack needs S to be a multiple of
-    ``min(ssm_chunk, S)``.  When `router_ids` is a list, the router's
-    [B, S, k] expert ids of each MoE layer are appended to it."""
+def forward(p, cfg, tokens=None, *, mode="full", moe_impl="einsum",
+            router_ids=None, embeds=None, enc_embeds=None,
+            mrope_positions=None):
+    """Full-sequence causal pass.  tokens: [B, S] int, or ``embeds`` [B, S,
+    d] for a config fed embeddings; ``enc_embeds`` [B, Se, d]: an
+    encoder-decoder's encoder inputs; ``mrope_positions`` [3, B, S]: an
+    M-RoPE config's position channels (without them it rotates by the
+    sequence index).  Returns (logits [B, S, V], caches, aux): with
+    ``mode="prefill"`` the per-layer list of caches (attention: ``{"kv":
+    {"k", "v"}}`` of length S, with MLA the latent ``{"ckv", "k_rope"}``;
+    Mamba2: ``{"ssm": {"state", "conv"}}`` after the last token; an
+    encoder-decoder's with ``"xkv"``), else None; aux is the summed
+    load-balance loss of the MoE layers.  A Mamba2 stack needs S to be a
+    multiple of ``min(ssm_chunk, S)``.  When `router_ids` is a list, the
+    router's [B, S, k] expert ids of each MoE layer are appended to it."""
     assert mode in ("full", "prefill"), mode
-    x = p["embed"]["tok"][tokens]
-    B, S = tokens.shape
+    if cfg.encoder_decoder and enc_embeds is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder's full pass needs "
+                         f"enc_embeds")
+    enc_out = encode(p, cfg, enc_embeds) if cfg.encoder_decoder else None
+    x = _decoder_inputs(p, cfg, tokens, embeds)
+    B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
+    mrope = mrope_positions if cfg.mrope else None
     caches = [] if mode == "prefill" else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    attn_forward = attn_lib.mla_forward if cfg.attn == "mla" else \
-        attn_lib.gqa_forward
     for lp in p["layers"]:
         h = apply_norm(lp["norm1"], x, cfg)
         if "mamba" in lp:
             y, c = mamba_lib.mamba_forward(lp["mamba"], h, cfg,
                                            return_cache=True)
             c = {"ssm": c}
-        else:
-            y, kv = attn_forward(lp["attn"], h, cfg, positions,
-                                 return_cache=True)
+        elif cfg.attn == "mla":
+            y, kv = attn_lib.mla_forward(lp["attn"], h, cfg, positions,
+                                         return_cache=True)
             c = {"kv": kv}
+        else:
+            y, kv = attn_lib.gqa_forward(lp["attn"], h, cfg, positions,
+                                         mrope_positions=mrope,
+                                         return_cache=True)
+            c = {"kv": kv}
+        x = x + y
+        if "xattn" in lp:
+            c["xkv"] = attn_lib.cross_attn_cache(lp["xattn"], enc_out, cfg)
+            x = apply_cross(lp, x, cfg, c["xkv"])
         if caches is not None:
             caches.append(c)
-        x = x + y
         if "ffn" in lp:
             h2 = apply_norm(lp["norm2"], x, cfg)
             if "router" in lp["ffn"]:
@@ -185,31 +339,41 @@ def forward(p, cfg, tokens, *, mode="full", moe_impl="einsum",
     return x @ p["lm_head"]["w"], caches, aux
 
 
-def prefill(p, cfg, tokens, *, moe_impl="einsum", router_ids=None):
-    """tokens: [B, S] -> (logits [B, S, V], per-layer caches of length S)."""
+def prefill(p, cfg, tokens=None, *, moe_impl="einsum", router_ids=None,
+            **inputs):
+    """tokens: [B, S] (or the inputs :func:`forward` takes by keyword) ->
+    (logits [B, S, V], per-layer caches of length S)."""
     logits, caches, _ = forward(p, cfg, tokens, mode="prefill",
-                                moe_impl=moe_impl, router_ids=router_ids)
+                                moe_impl=moe_impl, router_ids=router_ids,
+                                **inputs)
     return logits, caches
 
 
 # ----------------------------------------------------------------------------
 # decode
 # ----------------------------------------------------------------------------
-def decode_step(p, cfg, tokens, caches, pos: int, router_ids=None):
-    """One decode step.  tokens: [B, 1] int; caches: per-layer list (updated
-    in place); pos: index of the new token.  Returns (logits [B,1,V],
-    caches).  When `router_ids` is a list, the router's [B,1,k] expert ids
-    of each MoE layer are appended to it."""
-    x = p["embed"]["tok"][tokens]
-    attn_decode = attn_lib.mla_decode if cfg.attn == "mla" else \
-        attn_lib.gqa_decode
+def decode_step(p, cfg, tokens, caches, pos: int, router_ids=None, *,
+                embeds=None, mrope_positions=None):
+    """One decode step.  tokens: [B, 1] int (None with ``embeds`` [B, 1, d]
+    for a config fed embeddings); caches: per-layer list (updated in
+    place; an encoder-decoder's cross-attention reads its ``xkv``); pos:
+    index of the new token; mrope_positions: [3, B, 1] or None.  Returns
+    (logits [B,1,V], caches).  When `router_ids` is a list, the router's
+    [B,1,k] expert ids of each MoE layer are appended to it."""
+    x = decode_inputs(p, cfg, tokens, pos, embeds)
+    mrope = mrope_positions if cfg.mrope else None
     for lp, cache in zip(p["layers"], caches):
         h = apply_norm(lp["norm1"], x, cfg)
         if "mamba" in lp:
             y, _ = mamba_lib.mamba_decode(lp["mamba"], h, cfg, cache["ssm"])
+        elif cfg.attn == "mla":
+            y, _ = attn_lib.mla_decode(lp["attn"], h, cfg, cache["kv"], pos)
         else:
-            y, _ = attn_decode(lp["attn"], h, cfg, cache["kv"], pos)
+            y, _ = attn_lib.gqa_decode(lp["attn"], h, cfg, cache["kv"], pos,
+                                       mrope_positions=mrope)
         x = x + y
+        if "xattn" in lp:
+            x = apply_cross(lp, x, cfg, cache["xkv"])
         if "ffn" in lp:
             h2 = apply_norm(lp["norm2"], x, cfg)
             if "router" in lp["ffn"]:

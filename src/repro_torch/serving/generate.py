@@ -9,7 +9,9 @@ API:
   make_steps(cfg, moe_impl=...)   — (prefill_fn, decode_fn), plain
       functions over ``models.prefill`` / ``models.decode_step``.
   generate(params, cfg, prompt, ...) — end-to-end prefill + N decode steps
-      with KV-cache growth (``serving/kv_cache.grow_cache``).
+      with KV-cache growth (``serving/kv_cache.grow_cache``);
+      ``extra_inputs`` (an encoder-decoder's ``enc_embeds``) go to the
+      prefill.
 """
 from __future__ import annotations
 
@@ -40,9 +42,10 @@ def make_generator(device, seed: int) -> torch.Generator:
 
 
 def make_steps(cfg, *, moe_impl="einsum"):
-    """(prefill_fn(params, tokens), decode_fn(params, tokens, caches, pos))."""
-    def pf(params, tokens):
-        return prefill(params, cfg, tokens, moe_impl=moe_impl)
+    """(prefill_fn(params, tokens, **inputs), decode_fn(params, tokens,
+    caches, pos)); ``inputs`` are :func:`models.prefill`'s keywords."""
+    def pf(params, tokens, **inputs):
+        return prefill(params, cfg, tokens, moe_impl=moe_impl, **inputs)
 
     def dec(params, tokens, caches, pos):
         return decode_step(params, cfg, tokens, caches, pos)
@@ -51,10 +54,14 @@ def make_steps(cfg, *, moe_impl="einsum"):
 
 
 def generate(params, cfg, prompt, *, max_new_tokens: int = 32,
-             temperature: float = 0.0, seed: int = 0, steps=None
+             temperature: float = 0.0, seed: int = 0,
+             extra_inputs: Optional[Dict] = None, steps=None
              ) -> Tuple[np.ndarray, Dict[str, float]]:
-    """prompt: [B, S] int.  Returns (tokens [B, S+new] on the host, timing
-    metrics).  A step ends when its tokens are on the host."""
+    """prompt: [B, S] int; extra_inputs: keyword inputs of the prefill (an
+    encoder-decoder's ``{"enc_embeds": [B, Se, d]}``; the decode steps
+    read the encoder's K/V from the cache).  Returns (tokens [B, S+new]
+    on the host, timing metrics).  A step ends when its tokens are on the
+    host."""
     dev = params["embed"]["tok"].device
     prompt = torch.as_tensor(prompt, device=dev).long()
     B, S = prompt.shape
@@ -62,7 +69,7 @@ def generate(params, cfg, prompt, *, max_new_tokens: int = 32,
     gen = make_generator(dev, seed)
 
     t0 = time.perf_counter()
-    logits, caches = pf(params, prompt)
+    logits, caches = pf(params, prompt, **(extra_inputs or {}))
     caches = grow_cache(cfg, caches, B, S + max_new_tokens)
     next_tok = sample_tokens(logits[:, -1], gen, temperature)
     out = [next_tok.cpu()]

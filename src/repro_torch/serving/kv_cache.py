@@ -94,8 +94,9 @@ def restack_layers(layers, cfg):
 def grow_cache(cfg, caches, batch: int, new_len: int):
     """Copy per-layer `caches` (a prefill's, sequence length S) into new
     zeroed buffers of length `new_len` on the same device.  Sequence-free
-    leaves (``ssm`` state and conv ring) have their final shape already
-    and are copied whole."""
+    leaves (``ssm`` state and conv ring, an encoder-decoder's cross-
+    attention ``xkv``) have their final shape already and are copied
+    whole."""
     dev = tree_leaves(caches)[0].device
     target = init_cache(cfg, batch, new_len, device=dev)
 
@@ -135,7 +136,7 @@ class KVPagePool:
         if page_size < 1 or n_pages < 1 or max_slots < 1:
             raise ValueError(f"page_size {page_size}, n_pages {n_pages} and "
                              f"max_slots {max_slots} must be >= 1")
-        check_supported(cfg)
+        check_supported(cfg, "rows")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.page_size = int(page_size)

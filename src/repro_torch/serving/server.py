@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.faults import StepFault
+from repro_torch.models.model import check_supported
 from repro_torch.serving.generate import (make_generator, make_steps,
                                           sample_tokens)
 from repro_torch.serving.kv_cache import KVPagePool, grow_cache
@@ -111,6 +112,7 @@ class BatchServer:
                  max_concurrency: Optional[int] = None,
                  continuous: bool = True, page_size: int = 16,
                  n_pages: Optional[int] = None, seed: int = 0):
+        check_supported(cfg, "rows")
         self.params, self.cfg = params, cfg
         self.max_batch, self.max_len = max_batch, max_len
         self.max_concurrency = max_concurrency or max_batch

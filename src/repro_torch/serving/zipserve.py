@@ -70,16 +70,22 @@ decompression + bit-splice recovery) before the FFN runs.
   demand and predicted experts, and per-request hits are attributed by
   pure residency queries (``request_summary()``).
 
-Model families: GQA and MLA attention (``cfg.attn``); an MLA config
-decodes through ``mla_decode`` / ``mla_decode_rows`` (absorbed) over the
-latent KV cache, and a dense layer (deepseek-v2's first, jamba's even
+Model families: GQA and MLA attention (``cfg.attn``); an encoder-decoder
+(switch-large-128, whisper-small) adds its learned position to the step's
+input and runs each decoder layer's cross-attention over the cache's
+``xkv`` (the resident prefill's encoder K/V) between the mixer and the
+FFN, its encoder and cross-attention weights resident (the JAX package's
+``ZipServer`` skips that step and returns caches without ``xkv``); an MLA
+config decodes through ``mla_decode`` / ``mla_decode_rows`` (absorbed)
+over the latent KV cache, and a dense layer (deepseek-v2's first, jamba's even
 layers) stays resident while the store still holds it as group
 ``(layer, 0)``, as the JAX package serves it.  A Mamba2 layer (the ssm and
 hybrid families) decodes with ``mamba_decode`` over its sequence-free
 ``ssm`` cache, one recurrence step per row whatever the row's position;
 mamba2's FFN-less layers keep their projections resident while the store
-holds them as group ``(layer, 0)``.  Any other family is refused at
-construction.
+holds them as group ``(layer, 0)``.  ``decode_rows`` refuses an
+encoder-decoder, and the server a config fed input embeddings (qwen2-vl-2b):
+``models.model.refusal`` says why.
 
 Not ported yet: the multi-device peer tier (``mesh_devices`` raises
 ``NotImplementedError``).
@@ -110,7 +116,8 @@ from repro_torch.kernels.ops import (bucket_rows, fused_zip_gemm,
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models.layers import apply_mlp, apply_norm, silu
-from repro_torch.models.model import check_supported, init_cache
+from repro_torch.models.model import (apply_cross, check_supported,
+                                      decode_inputs, init_cache, refusal)
 from repro_torch.models.moe import route
 
 
@@ -161,7 +168,8 @@ class ZipServer:
         splices host-mode recoveries with the splice kernel on `device`
         instead of numpy: the grouped/ragged FFNs then take the spliced
         tensor on the device, the ``"loop"`` oracle downloads it."""
-        check_supported(cfg)
+        check_supported(cfg, "zipserver")
+        self._rows_refusal = refusal(cfg, "rows")
         assert ffn_impl in ("ragged", "grouped", "loop"), ffn_impl
         if mesh_devices != 1:
             raise NotImplementedError("mesh_devices is not ported yet")
@@ -1030,7 +1038,7 @@ class ZipServer:
         cfg = self.cfg
         p = self.globals
         tokens = torch.as_tensor(tokens, device=self.device).long()
-        x = p["embed"]["tok"][tokens]
+        x = decode_inputs(p, cfg, tokens, pos)
         # loop-ok: per-LAYER structure (hot-path bans per-EXPERT loops;
         # expert work inside goes through the grouped-GEMM kernels)
         for idx, (lp, cache) in enumerate(zip(self.layers, caches)):
@@ -1045,6 +1053,8 @@ class ZipServer:
                 y, _ = attn_lib.gqa_decode(lp["attn"], h, cfg, cache["kv"],
                                            pos)
             x = x + y
+            if "xattn" in lp:
+                x = apply_cross(lp, x, cfg, cache["xkv"])
             if "ffn" in lp:
                 h2 = apply_norm(lp["norm2"], x, cfg)
                 if "router" in lp["ffn"]:
@@ -1070,8 +1080,10 @@ class ZipServer:
         list over the union of all rows' demand and predicted experts, so
         the cache pools, device slabs and live planner serve the whole
         active set as shared multi-tenant resources.  Returns (logits
-        [B, 1, V], caches)."""
+        [B, 1, V], caches).  Refuses an encoder-decoder."""
         self._check_open()
+        if self._rows_refusal is not None:
+            raise NotImplementedError(self._rows_refusal)
         cfg = self.cfg
         p = self.globals
         tokens = torch.as_tensor(tokens, device=self.device).long()

@@ -226,7 +226,10 @@ def _serve_ref(jcfg, jparams, d, prompts, *, zs_kw, cc, arrivals, max_new=3,
 def test_continuous_matches_reference(moe2, monkeypatch, mode):
     jcfg, jparams, cfg, params, d = moe2
     prompts = _prompts(cfg, 1, (4, 7, 5))
-    arrivals = [0.0, 0.0, 0.02]
+    # all at once behind max_concurrency=2: the third request joins when
+    # the first retires, at the same step in both packages whatever the
+    # host's speed (an arrival time would race the steps' wall time)
+    arrivals = [0.0, 0.0, 0.0]
     seen = []
     ref_ffn = RefZipServer._zip_moe_ffn
 

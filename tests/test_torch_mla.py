@@ -34,10 +34,11 @@ from a seed and cross into the port through ``params_from_jax``.
 * **KVPagePool** over the latent leaves; **the CLI** with
   ``--arch deepseekv2-lite`` in its three modes; **continuous ≡ solo**
   (the assertions of test_torch_batching, restated for the latent pages).
-* **Entry points refuse** a config the port does not serve (M-RoPE,
-  learned positions, a hybrid whose Mamba2 mixers have no state width,
-  an encoder-decoder, tied embeddings) with ``NotImplementedError``
-  before any work.
+* **Entry points refuse** a config the port does not serve (M-RoPE on
+  MLA heads, learned positions in a decoder-only model, a hybrid whose
+  Mamba2 mixers have no state width, an encoder-decoder of Mamba2
+  mixers, tied embeddings) with ``NotImplementedError`` before any
+  work.
 """
 import dataclasses
 import filecmp
@@ -476,7 +477,10 @@ def test_zipserver_decode_rows_matches_reference(lite_store, monkeypatch,
     jcfg, jparams, cfg, params, d = lite_store
     zs_kw = dict(pool_sizes=POOLS, device_cache=device_cache)
     prompts = _prompts(cfg, 1, (4, 7, 5))
-    arrivals = [0.0, 0.0, 0.02]
+    # all at once behind max_concurrency=2: the third request joins when
+    # the first retires, at the same step in both packages whatever the
+    # host's speed (an arrival time would race the steps' wall time)
+    arrivals = [0.0, 0.0, 0.0]
     theirs, mine = [], []
     _record_routes(monkeypatch, RefZipServer, ref_moe.route, theirs)
     _record_routes(monkeypatch, ZipServer,
@@ -743,14 +747,21 @@ def test_cli_modes(capsys, mode, flags, lines):
 # ---------------------------------------------------------------------------
 _BASE = get_smoke_config("qwen2-moe-a2.7b", n_layers=2)
 UNSUPPORTED = {
-    "mrope": dataclasses.replace(_BASE, mrope=True),
+    # M-RoPE is served on GQA heads since qwen2-vl-2b; mla_forward takes
+    # no M-RoPE positions, so an MLA config with it is still refused
+    "mrope": dataclasses.replace(get_smoke_config(LITE, n_layers=2),
+                                 mrope=True, embed_inputs=False),
+    # learned positions are served in the encoder-decoders only
     "learned-pos": dataclasses.replace(_BASE, pos="learned"),
     # the hybrid family is served since jamba; one with ssm_state = 0 has
     # no Mamba2 state to carry and is still refused
     "hybrid": dataclasses.replace(_BASE, family="hybrid", attn_every=2,
                                   ssm_state=0),
-    "encoder-decoder": dataclasses.replace(_BASE, encoder_decoder=True,
-                                           n_enc_layers=2),
+    # the encoder-decoders are served since switch-large-128 with GQA
+    # decoders; one of Mamba2 mixers is still refused
+    "encoder-decoder": dataclasses.replace(
+        get_smoke_config("jamba-v0.1-52b"), encoder_decoder=True,
+        n_enc_layers=2),
     "tied-embeddings": dataclasses.replace(_BASE, tie_embeddings=True),
 }
 

@@ -35,12 +35,13 @@ MAX_REL, MEAN_REL = 0.02, 0.005
 _CONST = {"scale": 1.0, "q_norm": 1.0, "k_norm": 1.0, "kv_norm": 1.0,
           "D": 1.0, "gate_norm": 1.0,
           "bias": 0.0, "dt_bias": 0.0, "A_log": 0.0, "conv_b": 0.0}
-# embed and lm head as the JAX init; the router 10x the JAX init, so the
-# top-k margins sit far above bf16 noise and a test compares arithmetic,
-# not the luck of near-ties (at 0.02 the 8 smoke experts' probabilities
-# are all close to 1/8 and the two packages' last-ulp differences can
-# swap two of them); Mamba2's depthwise conv as the JAX init
-_STD = {"tok": 0.02, "w": 0.02, "router": 0.2, "conv_w": 0.2}
+# embed, learned positions and lm head as the JAX init; the router 10x
+# the JAX init, so the top-k margins sit far above bf16 noise and a test
+# compares arithmetic, not the luck of near-ties (at 0.02 the 8 smoke
+# experts' probabilities are all close to 1/8 and the two packages'
+# last-ulp differences can swap two of them); Mamba2's depthwise conv as
+# the JAX init
+_STD = {"tok": 0.02, "pos": 0.02, "w": 0.02, "router": 0.2, "conv_w": 0.2}
 
 
 def numpy_params(jcfg, seed: int = 0):
