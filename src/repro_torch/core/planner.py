@@ -120,9 +120,14 @@ def ipf_selection_probs(f: np.ndarray, k: int, *, iters: int = 600,
     ``benchmarks/planner_bench.py`` the speedup).
 
     The sweep loop also exits when the error stops improving (relative
-    progress < 0.1% for 30 consecutive sweeps): stiff fits (entries
-    projected against the q < 1 boundary) hit a numerical error floor
-    above ``tol`` and further sweeps only burn time at the floor."""
+    progress < 0.1% for 30 consecutive sweeps).  That floor comes from
+    :func:`esp_without`'s divide-out, which cancels catastrophically on
+    stiff fits (an entry projected to ``1 - 1e-9`` weighs ~1e9 times the
+    rest), so the sweep reads the wrong inclusion probabilities and can
+    stop far from f (0.36 off at n 4, k 3).  A fit that stops above
+    ``tol`` is finished by :func:`_fit_log_odds`, which reads them from
+    leave-one-out sums of positive terms only; a fit that converges
+    returns exactly what the sweep alone returns."""
     k = int(k)
     f = project_feasible(f, k)
     n = f.size
@@ -153,18 +158,59 @@ def ipf_selection_probs(f: np.ndarray, k: int, *, iters: int = 600,
             stall += 1
             if stall >= 30:
                 break                # converged to the numerical floor
+    if not err < tol and k < n:
+        w = _fit_log_odds(f, k, w, iters=iters, tol=tol)
     return np.clip(w / (1.0 + w), 1e-12, 1 - 1e-12)
 
 
-def inclusion_from_q(q: np.ndarray, k: int) -> np.ndarray:
-    """Check helper: implied inclusion probs P(i ∈ S | |S|=k) for given q."""
-    w = q / (1.0 - q)
-    R = esp(w, k)
-    out = np.empty(q.size)
-    for i in range(q.size):
-        Rwo = esp_without(w, R, i, k)
-        out[i] = w[i] * Rwo[k - 1] / R[k]
+def esp_leave_one_out(weights: np.ndarray, k: int) -> np.ndarray:
+    """[n, k+1]: row i is R(0..k, weights \\ {i}), from prefix and suffix
+    DPs.  Every term is a sum of products of positive weights, so nothing
+    cancels, however far apart the weights are."""
+    n = weights.size
+    pre = np.zeros((n + 1, k + 1), dtype=np.float64)
+    suf = np.zeros((n + 1, k + 1), dtype=np.float64)
+    pre[0, 0] = suf[n, 0] = 1.0
+    for i in range(n):
+        pre[i + 1] = pre[i]
+        pre[i + 1, 1:] += weights[i] * pre[i, :-1]
+    for i in range(n - 1, -1, -1):
+        suf[i] = suf[i + 1]
+        suf[i, 1:] += weights[i] * suf[i + 1, :-1]
+    out = np.zeros((n, k + 1), dtype=np.float64)
+    for j in range(k + 1):
+        for a in range(j + 1):
+            out[:, j] += pre[:n, a] * suf[1:, j - a]
     return out
+
+
+def _fit_log_odds(f: np.ndarray, k: int, w: np.ndarray, *, iters: int,
+                  tol: float) -> np.ndarray:
+    """Finish a stiff IPF fit from weights `w`: half steps of
+    ``log w_i += logit f_i - logit P(i ∈ S)``, with P(i ∈ S) from
+    :func:`esp_leave_one_out` (odds ``w_i R_{k-1}(w \\ i) / R_k(w \\ i)``),
+    the weights re-centred in log space every sweep so that the returned
+    q = w / (1 + w) stays inside its [1e-12, 1 - 1e-12] clip."""
+    target = np.log(f) - np.log1p(-f)
+    lw = np.log(np.maximum(w, 1e-300))
+    for _ in range(iters):
+        lw -= 0.5 * (lw.max() + lw.min())
+        R = esp_leave_one_out(np.exp(lw), k)
+        lodds = lw + np.log(R[:, k - 1]) - np.log(R[:, k])
+        if np.max(np.abs(1.0 / (1.0 + np.exp(-lodds)) - f)) < tol:
+            break
+        lw += 0.5 * (target - lodds)
+    return np.exp(lw)
+
+
+def inclusion_from_q(q: np.ndarray, k: int) -> np.ndarray:
+    """Check helper: implied inclusion probs P(i ∈ S | |S|=k) for given
+    q, from :func:`esp_leave_one_out` (the divide-out of
+    :func:`esp_without` misreads stiff q by up to 0.38)."""
+    w = q / (1.0 - q)
+    R = esp_leave_one_out(w, k)
+    num = w * R[:, k - 1]                  # w_i R_{k-1}(w \ i)
+    return num / (num + R[:, k])           # over R_k(w)
 
 
 # ----------------------------------------------------------------------------
