@@ -2439,7 +2439,8 @@ def ssm_phase(torch, np, dev, store_dir):
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="smoke_store_mamba_",
                                      dir=ROOT / "build") as tmp:
-        numbers.update(mamba_phase(torch, np, dev, tmp))
+        # its own key: build_store_s and store_ratio above stay jamba's
+        numbers["mamba2"] = mamba_phase(torch, np, dev, tmp)
     numbers["cli_s"] = run_cli(torch, ("--arch", JAMBA_ARCH) + CLI_ARGS,
                                "jamba-cli")
     return launches, numbers
