@@ -50,11 +50,13 @@ import pytest
 import torch
 
 from repro.configs import get_smoke_config as ref_smoke_config
+from repro.core.engine import FetchHandle as RefFetchHandle
 from repro.core.store import build_store as ref_build_store
 from repro.serving.server import BatchServer as RefBatchServer
 from repro.serving.zipserve import ZipServer as RefZipServer
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import params_from_jax
+from repro_torch.core.engine import FetchHandle
 from repro_torch.models.moe import route
 from repro_torch.serving.kv_cache import KVPagePool
 from repro_torch.serving.server import BatchServer
@@ -97,6 +99,21 @@ def moe2_wide(tmp_path_factory):
 
 _ORIG_FFN = ZipServer._zip_moe_ffn
 _ORIG_FREE = KVPagePool.free
+
+
+def settle_predictions(monkeypatch):
+    """Make both packages' prediction jobs finish before each drain asks
+    whether they are done (``ZipServer._drain``).  A finished job's unused
+    tail is admitted to the pools at that drain, an unfinished one's at a
+    later one, so without this the experts resident at a step's start,
+    and with them ``request_summary()``'s hits, depend on how fast the
+    host reconstructs: a host that finishes no prediction in time reads 1
+    hit fewer for a request than the reference on a faster one.  With it,
+    every prediction lands at the first drain after its step in both
+    packages."""
+    for cls in (RefFetchHandle, FetchHandle):
+        monkeypatch.setattr(cls, "done",
+                            lambda self: self._job.done_ev.wait(60.0))
 
 
 class Recorder:
@@ -241,6 +258,7 @@ def test_continuous_matches_reference(moe2, monkeypatch, mode):
         return ref_ffn(self, lp, x, layer_idx, owners)
 
     monkeypatch.setattr(RefZipServer, "_zip_moe_ffn", recording)
+    settle_predictions(monkeypatch)
     want, ref_srv, _ = _serve_ref(jcfg, jparams, d, prompts,
                                   zs_kw=MODES[mode], cc=2, arrivals=arrivals)
     got, srv, zs = _serve(cfg, params, d, prompts, zs_kw=MODES[mode], cc=2,
