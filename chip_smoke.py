@@ -179,7 +179,29 @@ failure exits non-zero:
    depth (28 layers) fed seeded embeddings with M-RoPE positions of one
    image grid then text (three channels that differ): ``prefill(S-1)`` +
    ``decode_step`` against ``forward(S)``.
-8. One JSON line with each kernel's launches on its path, error, times and
+8. Training, on the card (plain PyTorch: no kernel of the port may
+   launch; the reference's training path runs no Pallas kernel either):
+
+   * qwen2-moe-a2.7b with every width as published, depth cut 24 -> 2
+     (1,763,426,304 params), seeded ``init_params`` on the card, 8 steps
+     of ``make_train_step(remat=True, moe_impl="einsum", warmup=2)`` on
+     one fixed seeded batch of 4 x 512 tokens: every loss and gradient
+     norm finite, the last loss at least ``TRAIN_MIN_DROP`` below the
+     first; the median step time over steps 2-8, tokens/s, the share of
+     989 TFLOP/s the step's reckoned matmul FLOPs reach
+     (``train_step_flops``), and the peak allocation against the 21.2 GB
+     of bf16 params and grads and f32 moments;
+   * at the same width, one step each way: remat against no remat (loss
+     and gradients bit-identical but for the token embedding's, whose
+     backward adds with atomics), the scatter dispatch's loss against the
+     einsum's, and the int8 error feedback's residuals within half a
+     quantisation step of every gradient, then one compressed step;
+   * at the train CLI's ``tiny`` preset: 8 steps straight through against
+     4 steps, a checkpoint, a restore into a fresh state (bit-equal to the
+     saved one) and 4 more steps;
+   * the train CLI once as a subprocess (granite-8b, ``tiny``, 20 steps,
+     checkpoints): its final loss below its step-0 loss.
+9. One JSON line with each kernel's launches on its path, error, times and
    bound; then the result line.  Each phase's wall time is printed as it
    ends.
 """
@@ -313,6 +335,29 @@ WHISPER_STEPS = 4
 VLM_ARCH = "qwen2-vl-2b"
 VLM_GRID = (3, 4)
 ENCDEC_SEQ = 16
+# phase 8: training qwen2-moe-a2.7b at full width, depth as the serving
+# phases; one fixed seeded batch fed TRAIN_STEPS times
+TRAIN_LAYERS = N_LAYERS
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_STEPS = 8
+TRAIN_LR = 1e-3
+# the last loss must be below the first by at least this (nats): the
+# model fits one batch it sees 8 times
+TRAIN_MIN_DROP = 0.25
+# remat against no remat: the same forward, recomputed, so the loss and
+# every gradient are bit-identical, except the token embedding's
+# gradient, which the embedding lookup's backward accumulates with
+# atomic adds in an order that varies from run to run (repeated tokens)
+REMAT_EMBED_REL = 2.0 ** -7
+# scatter against einsum dispatch: the same routes and drops, the combine
+# summed in another order in bf16
+SCATTER_LOSS_REL = 1e-3
+# a checkpoint's resumed run against the straight one: the restored
+# state is bit-equal, but the embedding backward's atomics may change
+# the last bits of a later step
+CKPT_LOSS_ABS = 1e-3
+TRAIN_CLI_ARGS = ("--arch", "granite-8b", "--preset", "tiny", "--steps",
+                  "20")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12     # dense bf16 tensor-core peak
 # ragged GEMM vs its f32 plain version: both sum in f32 but in another
@@ -2697,6 +2742,323 @@ def encdec_phase(torch, np, dev, store_dir):
     return {"switch-ragged": launches}, numbers
 
 
+# ----------------------------------------------------------------------------
+# phase 8: training
+# ----------------------------------------------------------------------------
+def named_leaves(tree, path=""):
+    """(path, tensor) of every leaf of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from named_leaves(v, f"{path}/{i}")
+    elif tree is not None:
+        yield path, tree
+
+
+def train_step_flops(cfg, B: int, S: int, remat: bool) -> dict:
+    """Matmul FLOPs (2 per multiply-add) of one train step of `cfg` on a
+    [B, S] batch: forward, backward (twice the forward) and, under remat,
+    the stack's forward again.  Attention scores count every [S, S]
+    product (the plain attention computes the masked half too).  The
+    einsum MoE counts every one of its E x G x C capacity slots through
+    the expert FFN, filled or not, and the full one-hot contraction of its
+    dispatch and combine einsums."""
+    from repro_torch.models.moe import group_capacity
+    T, d = B * S, cfg.d_model
+    n_mm = 3 if cfg.act == "swiglu" else 2
+    attn = 2 * T * d * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim \
+        + 2 * 2 * B * cfg.n_heads * S * S * cfg.head_dim
+    g = cfg.moe_group_size
+    G, s = (B * (S // g), g) if g and S > g and S % g == 0 else (B, S)
+    C = group_capacity(s, cfg)
+    slots = cfg.n_experts * G * C
+    moe = 2 * T * d * cfg.n_experts + 2 * (2 * G * s * cfg.n_experts * C * d) \
+        + n_mm * 2 * slots * d * cfg.d_expert \
+        + n_mm * 2 * T * d * cfg.d_expert * cfg.n_shared_experts
+    mlp = n_mm * 2 * T * d * cfg.d_ff
+    layers = [attn + (moe if cfg.moe_layer(i) else mlp)
+              for i in range(cfg.n_layers)]
+    head = 2 * T * d * cfg.vocab_size
+    fwd = sum(layers) + head
+    recompute = sum(layers[cfg.first_dense:]) if remat else 0
+    return {"forward": fwd, "step": 3 * fwd + recompute,
+            "capacity_slots": slots, "routed_pairs": T * cfg.top_k,
+            "capacity": C}
+
+
+def train_full_width(torch, np, dev):
+    """Phase 8 (a) and (b): qwen2-moe-a2.7b at every published width,
+    depth TRAIN_LAYERS, seeded init on the card; TRAIN_STEPS steps of
+    ``make_train_step(remat=True, moe_impl="einsum")`` on one fixed seeded
+    batch, then one step each way: remat against no remat, scatter against
+    einsum, and the int8 error feedback's residual bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.model import train_loss
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_step import (_compress_ef,
+                                                 init_train_state,
+                                                 loss_and_grads,
+                                                 make_train_step)
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=TRAIN_LAYERS)
+    n_params = cfg.param_counts()["total"]
+    reckoned = 12 * n_params          # bf16 params + bf16 grads + f32 m, v
+    rng = np.random.default_rng(SEED)
+    toks = rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                        dtype=np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(dev),
+             "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev)}
+    numbers = {"params": n_params, "reckoned_bytes": reckoned}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=dev)
+    # param_counts() counts the matrices; the norm scales come on top
+    check(sum(p.numel() for p in tree_leaves(params) if p.ndim >= 2)
+          == n_params, "train: the parameter count is not param_counts()'s")
+    numbers["params_with_norms"] = sum(p.numel()
+                                       for p in tree_leaves(params))
+    state = init_train_state(params)
+    step = make_train_step(cfg, lr=TRAIN_LR, warmup=2,
+                           total_steps=TRAIN_STEPS, remat=True,
+                           moe_impl="einsum")
+    torch.cuda.synchronize()
+    numbers["init_s"] = time.perf_counter() - t0
+    losses, gnorms, times = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss, gnorm = float(m["loss"]), float(m["gnorm"])
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        gnorms.append(gnorm)
+        check(np.isfinite(loss) and np.isfinite(gnorm),
+              f"train: step {i}: loss {loss}, gnorm {gnorm}")
+    peak = torch.cuda.max_memory_allocated() - base
+    check(losses[-1] < losses[0] - TRAIN_MIN_DROP,
+          f"train: loss fell from {losses[0]} to {losses[-1]}, less than "
+          f"{TRAIN_MIN_DROP}")
+    flops = train_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ, remat=True)
+    step_s = statistics.median(times[1:])
+    numbers.update(
+        losses=losses, gnorms=gnorms, step_s=times,
+        median_step_s=step_s,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+        step_flops=flops["step"], flop_share=flops["step"] / step_s
+        / BF16_FLOP_PER_S, capacity_slots=flops["capacity_slots"],
+        routed_pairs=flops["routed_pairs"], capacity=flops["capacity"],
+        peak_bytes=peak, peak_over_reckoned=peak / reckoned)
+    print(f"train (a): {ARCH} at full width, depth {TRAIN_LAYERS}: "
+          f"{n_params} params, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"lr {TRAIN_LR} (warmup 2 of {TRAIN_STEPS}); losses "
+          f"{[round(x, 4) for x in losses]}, gnorms "
+          f"{[round(x, 4) for x in gnorms]}", flush=True)
+    print(f"train (a): median step {step_s * 1e3:.2f} ms over steps 2-"
+          f"{TRAIN_STEPS} ({[round(t * 1e3, 2) for t in times]} ms), "
+          f"{numbers['tokens_per_s']:.0f} tokens/s, "
+          f"{flops['step'] / 1e12:.3f} TFLOP a step (every one of the "
+          f"{flops['capacity_slots']} E x G x C = {cfg.n_experts} x "
+          f"{TRAIN_BATCH} x {flops['capacity']} capacity slots counted; "
+          f"{flops['routed_pairs']} routed pairs), "
+          f"{numbers['flop_share'] * 100:.2f}% of "
+          f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; peak allocated "
+          f"{peak / 1e9:.3f} GB against {reckoned / 1e9:.3f} GB of params, "
+          f"grads and moments", flush=True)
+
+    # -- (b): one step each way at the same width ----------------------
+    params = state.params
+    del state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    la, _, ga = loss_and_grads(params, cfg, batch, remat=True)
+    lb, _, gb = loss_and_grads(params, cfg, batch, remat=False)
+    check(torch.equal(la, lb), f"train (b): remat loss {float(la)} != "
+          f"no-remat loss {float(lb)}")
+    differ = {}
+    for (path, a), (_, b) in zip(named_leaves(ga), named_leaves(gb)):
+        if not torch.equal(a, b):
+            differ[path] = float((a.float() - b.float()).abs().max()
+                                 / b.float().abs().max())
+    del gb
+    check(set(differ) <= {"/embed/tok"} and
+          all(v <= REMAT_EMBED_REL for v in differ.values()),
+          f"train (b): remat and no-remat gradients differ: {differ}")
+    numbers["remat"] = {"loss_equal": True,
+                        "leaves": len(tree_leaves(ga)),
+                        "leaves_differing": differ}
+    print(f"train (b): remat == no remat: loss bit-identical "
+          f"({float(la):.6f}), {len(tree_leaves(ga)) - len(differ)} of "
+          f"{len(tree_leaves(ga))} gradient leaves bit-identical, "
+          f"differing: {differ or 'none'}", flush=True)
+    with torch.no_grad():
+        le = float(train_loss(params, cfg, batch, remat=False,
+                              moe_impl="einsum")[0])
+        ls = float(train_loss(params, cfg, batch, remat=False,
+                              moe_impl="scatter")[0])
+    rel = abs(ls - le) / abs(le)
+    check(rel <= SCATTER_LOSS_REL, f"train (b): scatter loss {ls} against "
+          f"einsum loss {le}: {rel}")
+    numbers["scatter"] = {"loss_einsum": le, "loss_scatter": ls, "rel": rel}
+    print(f"train (b): scatter loss {ls:.6f} against einsum {le:.6f}: "
+          f"{rel:.3e} relative (limit {SCATTER_LOSS_REL})", flush=True)
+    worst = 0.0
+    for path, g in named_leaves(ga):
+        deq, res = _compress_ef(g, torch.zeros(g.shape, dtype=torch.float32,
+                                               device=dev))
+        scale = float(g.float().abs().max()) / 127.0
+        r = float(res.abs().max())
+        check(r <= scale * (0.5 + 2.0 ** -16),
+              f"train (b): {path}: residual {r} above scale/2 = "
+              f"{scale / 2}")
+        worst = max(worst, r / scale if scale else 0.0)
+        del deq, res
+    del ga
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = init_train_state(params, grad_compress=True)
+    step = make_train_step(cfg, lr=TRAIN_LR, warmup=2,
+                           total_steps=TRAIN_STEPS, remat=True,
+                           grad_compress=True)
+    state, m = step(state, batch)
+    check(np.isfinite(float(m["loss"])) and all(
+        bool(torch.isfinite(e).all()) for e in tree_leaves(state.err)),
+        "train (b): the compressed step is not finite")
+    numbers["compress"] = {"residual_over_scale": worst,
+                           "loss": float(m["loss"])}
+    print(f"train (b): int8 error feedback: every residual within "
+          f"{worst:.6f} x scale (bound 0.5 + 2^-16); one compressed step, "
+          f"loss "
+          f"{float(m['loss']):.6f}", flush=True)
+    del state, step, m, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def train_checkpoint(torch, np, dev, tmp):
+    """Phase 8 (c): at the train CLI's ``tiny`` preset, 8 steps straight
+    through against 4 steps, a save, a restore into a fresh state and 4
+    more steps."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.train import preset_config
+    from repro_torch.models import init_params
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.data import data_iter
+    from repro_torch.training.train_step import (TrainState, as_tensors,
+                                                 init_train_state,
+                                                 make_train_step)
+    cfg, B, S = preset_config(ARCH, "tiny")
+    it = data_iter(cfg, ShapeConfig("train", S, B, "train"), seed=SEED)
+    batches = [as_tensors(next(it), cfg, dev) for _ in range(8)]
+
+    def fresh(seed):
+        return init_train_state(init_params(cfg, seed=seed, device=dev))
+
+    def run(state, bs):
+        step = make_train_step(cfg, lr=3e-3, warmup=2, total_steps=8)
+        out = []
+        for b in bs:
+            state, m = step(state, b)
+            out.append(float(m["loss"]))
+        return state, out
+
+    _, straight = run(fresh(SEED), batches)
+    state, first = run(fresh(SEED), batches[:4])
+    mgr = CheckpointManager(tmp, async_write=True)
+    mgr.save(4, state._asdict(), extra={"loss": first[-1]})
+    mgr.wait()
+    other = fresh(SEED + 1)               # the fresh state to restore into
+    restored, step, extra = mgr.restore(other._asdict(), device=dev)
+    check(step == 4 and extra == {"loss": first[-1]},
+          f"train (c): restored step {step}, extra {extra}")
+    saved = dict(named_leaves(state._asdict()))
+    n = 0
+    for path, t in named_leaves(restored):
+        check(t.device == dev and t.dtype == saved[path].dtype
+              and torch.equal(t.view(torch.int16) if t.dtype ==
+                              torch.bfloat16 else t,
+                              saved[path].view(torch.int16)
+                              if t.dtype == torch.bfloat16 else saved[path]),
+              f"train (c): restored {path} differs from the saved state")
+        n += 1
+    check(n == len(saved), "train (c): leaves missing from the restore")
+    del state, other
+    _, second = run(TrainState(**restored), batches[4:])
+    resumed = first + second
+    diff = max(abs(a - b) for a, b in zip(straight, resumed))
+    equal = sum(a == b for a, b in zip(straight, resumed))
+    check(diff <= CKPT_LOSS_ABS, f"train (c): resumed losses {resumed} "
+          f"against straight {straight}")
+    check(straight[-1] < straight[0], f"train (c): loss {straight}")
+    print(f"train (c): {ARCH} tiny preset ({cfg.d_model} wide, "
+          f"{cfg.n_layers} layers, batch {B} x {S}): restored state "
+          f"bit-equal ({n} leaves); losses straight {straight}, resumed "
+          f"{resumed}: {equal} of 8 bit-equal, largest difference {diff}",
+          flush=True)
+    return {"straight": straight, "resumed": resumed, "bit_equal": equal,
+            "max_abs_diff": diff, "leaves": n}
+
+
+def train_cli(torch, tmp):
+    """Phase 8 (d): the train CLI once as a subprocess."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = TRAIN_CLI_ARGS + ("--ckpt-dir", tmp)
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *args],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    cli_s = time.perf_counter() - t0
+    lines = cli.stdout.splitlines()
+    for ln in lines[-6:]:
+        print(f"train-cli: {ln}", flush=True)
+    check(cli.returncode == 0, f"train-cli: exited {cli.returncode}: "
+          f"{cli.stderr[-2000:]}")
+    steps = [ln for ln in lines if ln.startswith("step")]
+    check(steps and steps[0].startswith("step     0") and lines[-1]
+          .startswith("done in"), "train-cli: no step-0 or final line")
+    first = float(steps[0].split("loss=")[1].split()[0])
+    final = float(lines[-1].rsplit("final loss", 1)[1])
+    check(final < first, f"train-cli: final loss {final} not below the "
+          f"step-0 loss {first}")
+    print(f"train-cli: python -m repro_torch.launch.train {' '.join(args)}: "
+          f"exit 0 in {cli_s:.1f} s, loss {first} -> {final}", flush=True)
+    return {"first_loss": first, "final_loss": final, "wall_s": cli_s}
+
+
+def train_phase(torch, np, dev):
+    """Phase 8: training on the card.  Every kernel count must stay 0:
+    the training path runs plain PyTorch (the reference's train_loss runs
+    no Pallas kernel either)."""
+    from repro_torch.kernels import _build
+    numbers, walls = {}, {}
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    numbers["full_width"] = train_full_width(torch, np, dev)
+    walls["full_width"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smoke_ckpt_",
+                                     dir=ROOT / "build") as tmp:
+        numbers["checkpoint"] = train_checkpoint(torch, np, dev, tmp)
+    walls["checkpoint"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smoke_train_cli_",
+                                     dir=ROOT / "build") as tmp:
+        numbers["cli"] = train_cli(torch, tmp)
+    walls["cli"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    check(not any(_build.LAUNCHES.values()),
+          f"train: a kernel launched on the training path: "
+          f"{dict(_build.LAUNCHES)}")
+    numbers["wall_s"] = walls
+    print(f"phase 8 parts (s): {json.dumps(walls)}", flush=True)
+    return numbers
+
+
 def cfg_moe_layers(cfg):
     return [i for i in range(cfg.n_layers) if cfg.moe_layer(i)]
 
@@ -2780,6 +3142,11 @@ def main():
         encdec_launches, e2e["encdec"] = encdec_phase(torch, np, dev, tmp)
     launches.update(encdec_launches)
     walls["7"] = phase_wall("7", t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    e2e["train"] = train_phase(torch, np, dev)
+    walls["8"] = phase_wall("8", t0)
     e2e["phase_wall_s"] = walls
     # every kernel runs on some path, and every path runs its kernels; a
     # kernel's launches are its count on the first path that runs it

@@ -17,7 +17,9 @@ package's scanned stack::
      ["encoder": [{"norm1", "attn", "norm2", "ffn"}, ...], "enc_norm",]
      "layers": [{"norm1", "attn" | "mamba", ["norm_x", "xattn"],
                  ["norm2", "ffn"]}, ...],
-     "final_norm": {"scale"}, "lm_head": {"w": [d, V]}}
+     "final_norm": {"scale"}, ["lm_head": {"w": [d, V]}]}
+
+(no ``lm_head`` with ``tie_embeddings``: the head is ``embed.tok.T``)
 
 and the caches a per-layer list of ``{"kv": ...}`` (attention) or
 ``{"ssm": {"state", "conv"}}`` (Mamba2), an encoder-decoder's with the
@@ -27,7 +29,8 @@ the target device);
 ``repro_torch.convert.params_from_jax`` builds the same structure from the
 JAX package's parameter tree.  :func:`prefill` followed by
 :func:`decode_step` is the fully resident model that the serving paths
-are checked against.
+are checked against; :func:`train_loss` is the training objective, with
+every super-block of the stack rematerialised under ``remat``.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import math
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
@@ -83,8 +87,8 @@ def enc_config(cfg):
 
 def _model_refusal(cfg) -> Optional[str]:
     fam, attn = cfg.family, cfg.attn
-    if cfg.tie_embeddings:
-        return "tied embeddings are not ported"
+    if cfg.tie_embeddings and not cfg.embed_inputs:
+        return "tied embeddings need a token embedding to tie to"
     if fam == "ssm":           # no attention layer at all
         ok = attn == "none" and cfg.pos == "none" and cfg.embed_inputs \
             and not (cfg.encoder_decoder or cfg.mrope)
@@ -199,8 +203,14 @@ def init_params(cfg, seed: int = 0, device=None) -> Dict[str, Any]:
     p["layers"] = [init_layer(gen, cfg, i, dev, cross=cfg.encoder_decoder)
                    for i in range(cfg.n_layers)]
     p["final_norm"] = init_norm(cfg, dev)
-    p["lm_head"] = init_lm_head(gen, cfg, dev)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = init_lm_head(gen, cfg, dev)
     return p
+
+
+def lm_head_weight(p, cfg):
+    """[d, V]: ``lm_head.w``, or ``embed.tok.T`` with tied embeddings."""
+    return p["embed"]["tok"].T if cfg.tie_embeddings else p["lm_head"]["w"]
 
 
 def init_layer_cache(cfg, idx: int, batch: int, length: int, device
@@ -276,9 +286,55 @@ def apply_cross(lp, x, cfg, xkv):
 # ----------------------------------------------------------------------------
 # full-sequence passes
 # ----------------------------------------------------------------------------
+def _layer_full(lp, x, cfg, positions, mrope, enc_out, moe_impl,
+                want_cache: bool):
+    """One decoder layer over a whole sequence.  Returns (x, cache or
+    None, aux or None, router top-k ids or None)."""
+    h = apply_norm(lp["norm1"], x, cfg)
+    if "mamba" in lp:
+        y, c = mamba_lib.mamba_forward(lp["mamba"], h, cfg,
+                                       return_cache=True)
+        c = {"ssm": c}
+    elif cfg.attn == "mla":
+        y, kv = attn_lib.mla_forward(lp["attn"], h, cfg, positions,
+                                     return_cache=True)
+        c = {"kv": kv}
+    else:
+        y, kv = attn_lib.gqa_forward(lp["attn"], h, cfg, positions,
+                                     mrope_positions=mrope,
+                                     return_cache=True)
+        c = {"kv": kv}
+    x = x + y
+    if "xattn" in lp:
+        c["xkv"] = attn_lib.cross_attn_cache(lp["xattn"], enc_out, cfg)
+        x = apply_cross(lp, x, cfg, c["xkv"])
+    aux = top_i = None
+    if "ffn" in lp:
+        h2 = apply_norm(lp["norm2"], x, cfg)
+        if "router" in lp["ffn"]:
+            y2, (top_i, probs) = moe_lib.apply_moe(lp["ffn"], h2, cfg,
+                                                   impl=moe_impl)
+            aux = moe_lib.load_balance_loss(probs, top_i, cfg)
+        else:
+            y2 = apply_mlp(lp["ffn"], h2, cfg)
+        x = x + y2
+    return x, (c if want_cache else None), aux, top_i
+
+
+def _superblock(layers, x, aux, cfg, positions, mrope, enc_out, moe_impl):
+    """`layers` in order over a whole sequence, no caches: (x, aux) with
+    each MoE layer's load-balance loss added to `aux`."""
+    for lp in layers:
+        x, _, a, _ = _layer_full(lp, x, cfg, positions, mrope, enc_out,
+                                 moe_impl, False)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
 def forward(p, cfg, tokens=None, *, mode="full", moe_impl="einsum",
             router_ids=None, embeds=None, enc_embeds=None,
-            mrope_positions=None):
+            mrope_positions=None, remat=False):
     """Full-sequence causal pass.  tokens: [B, S] int, or ``embeds`` [B, S,
     d] for a config fed embeddings; ``enc_embeds`` [B, Se, d]: an
     encoder-decoder's encoder inputs; ``mrope_positions`` [3, B, S]: an
@@ -290,8 +346,17 @@ def forward(p, cfg, tokens=None, *, mode="full", moe_impl="einsum",
     encoder-decoder's with ``"xkv"``), else None; aux is the summed
     load-balance loss of the MoE layers.  A Mamba2 stack needs S to be a
     multiple of ``min(ssm_chunk, S)``.  When `router_ids` is a list, the
-    router's [B, S, k] expert ids of each MoE layer are appended to it."""
+    router's [B, S, k] expert ids of each MoE layer are appended to it.
+
+    ``remat=True`` (``mode="full"`` only) runs each super-block of
+    ``period`` layers after the ``first_dense`` prefix under
+    ``torch.utils.checkpoint``: its activations are recomputed in the
+    backward pass instead of kept, as the JAX package's scan body runs
+    under ``jax.checkpoint``.  The prefix layers are not rematerialised;
+    the values are the same either way."""
     assert mode in ("full", "prefill"), mode
+    if remat and (mode != "full" or router_ids is not None):
+        raise ValueError("remat runs a full pass that records nothing")
     if cfg.encoder_decoder and enc_embeds is None:
         raise ValueError(f"{cfg.name}: an encoder-decoder's full pass needs "
                          f"enc_embeds")
@@ -303,40 +368,45 @@ def forward(p, cfg, tokens=None, *, mode="full", moe_impl="einsum",
     mrope = mrope_positions if cfg.mrope else None
     caches = [] if mode == "prefill" else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in p["layers"]:
-        h = apply_norm(lp["norm1"], x, cfg)
-        if "mamba" in lp:
-            y, c = mamba_lib.mamba_forward(lp["mamba"], h, cfg,
-                                           return_cache=True)
-            c = {"ssm": c}
-        elif cfg.attn == "mla":
-            y, kv = attn_lib.mla_forward(lp["attn"], h, cfg, positions,
-                                         return_cache=True)
-            c = {"kv": kv}
-        else:
-            y, kv = attn_lib.gqa_forward(lp["attn"], h, cfg, positions,
-                                         mrope_positions=mrope,
-                                         return_cache=True)
-            c = {"kv": kv}
-        x = x + y
-        if "xattn" in lp:
-            c["xkv"] = attn_lib.cross_attn_cache(lp["xattn"], enc_out, cfg)
-            x = apply_cross(lp, x, cfg, c["xkv"])
+    layers = p["layers"]
+    n_plain = cfg.first_dense if remat else len(layers)
+    for lp in layers[:n_plain]:
+        x, c, a, top_i = _layer_full(lp, x, cfg, positions, mrope, enc_out,
+                                     moe_impl, caches is not None)
         if caches is not None:
             caches.append(c)
-        if "ffn" in lp:
-            h2 = apply_norm(lp["norm2"], x, cfg)
-            if "router" in lp["ffn"]:
-                y2, (top_i, probs) = moe_lib.apply_moe(lp["ffn"], h2, cfg,
-                                                       impl=moe_impl)
-                aux = aux + moe_lib.load_balance_loss(probs, top_i, cfg)
-                if router_ids is not None:
-                    router_ids.append(top_i)
-            else:
-                y2 = apply_mlp(lp["ffn"], h2, cfg)
-            x = x + y2
+        if a is not None:
+            aux = aux + a
+            if router_ids is not None:
+                router_ids.append(top_i)
+    if remat:
+        _, period, _ = stack_layout(cfg)
+        for b in range(n_plain, len(layers), period):
+            x, aux = checkpoint(_superblock, layers[b:b + period], x, aux,
+                                cfg, positions, mrope, enc_out, moe_impl,
+                                use_reentrant=False)
     x = apply_norm(p["final_norm"], x, cfg)
-    return x @ p["lm_head"]["w"], caches, aux
+    return x @ lm_head_weight(p, cfg), caches, aux
+
+
+def train_loss(p, cfg, batch, *, remat=True, moe_impl="einsum",
+               aux_weight=0.01):
+    """The training objective on a batch dict of ``batch_spec(cfg, shape,
+    "train")``'s keys (``tokens`` or ``embeds``, ``labels``, and
+    ``enc_embeds`` / ``mrope_positions`` where the config takes them):
+    the mean next-token NLL over labels >= 0, from f32 log-softmax, plus
+    ``aux_weight`` times the summed load-balance loss.  Returns (loss,
+    {"nll", "aux"})."""
+    logits, _, aux = forward(
+        p, cfg, batch.get("tokens"), mode="full", moe_impl=moe_impl,
+        embeds=batch.get("embeds"), enc_embeds=batch.get("enc_embeds"),
+        mrope_positions=batch.get("mrope_positions"), remat=remat)
+    labels = batch["labels"].long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    loss = (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return loss + aux_weight * aux, {"nll": loss, "aux": aux}
 
 
 def prefill(p, cfg, tokens=None, *, moe_impl="einsum", router_ids=None,
@@ -384,4 +454,4 @@ def decode_step(p, cfg, tokens, caches, pos: int, router_ids=None, *,
                 y2 = apply_mlp(lp["ffn"], h2, cfg)
             x = x + y2
     x = apply_norm(p["final_norm"], x, cfg)
-    return x @ p["lm_head"]["w"], caches
+    return x @ lm_head_weight(p, cfg), caches

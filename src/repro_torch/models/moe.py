@@ -6,8 +6,10 @@ Routing variants:
 
 The routed expert stacks are ``[E, d, f]`` tensors.  Two entry points:
 
-* :func:`apply_moe` — full sequences (prefill): GShard-style dense
-  dispatch/combine einsums with a per-group expert capacity
+* :func:`apply_moe` — full sequences (prefill, training): GShard-style
+  dense dispatch/combine einsums (``impl="einsum"``) or a scatter-add
+  dispatch and gather combine with no dense dispatch tensor
+  (``impl="scatter"``), with a per-group expert capacity
   (:func:`group_capacity`).  A (token, slot) pair whose queue position at
   its expert reaches the capacity is **dropped**, exactly as the JAX
   package drops it; queue positions are slot-major (:func:`_positions`).
@@ -124,22 +126,45 @@ def _apply_einsum(p, xg, cfg, capacity):
     return y, (top_i, probs)
 
 
+def _apply_scatter(p, xg, cfg, capacity):
+    """xg: [G, s, d] grouped tokens -> (y [G, s, d], (top_i, probs)): each
+    kept (token, slot) pair is scatter-added into its expert's queue slot
+    of ``[E, G, C, d]`` and its output gathered back from there; a dropped
+    pair adds zeros at slot 0 and reads back with weight 0."""
+    G, s, d = xg.shape
+    E, C = p["w_up"].shape[0], capacity
+    top_p, top_i, probs = route(p["router"], xg, cfg)         # [G,s,k]
+    pos = _positions(top_i, E)
+    keep = pos < C
+    posc = torch.where(keep, pos, torch.zeros_like(pos))
+    gidx = torch.arange(G, device=xg.device)[:, None, None].expand_as(top_i)
+    upd = xg[:, :, None, :] * keep[..., None].to(xg.dtype)    # [G,s,k,d]
+    xin = torch.zeros((E, G, C, d), dtype=xg.dtype, device=xg.device)
+    xin = xin.index_put((top_i, gidx, posc), upd, accumulate=True)
+    eout = _moe_ffn(p, xin)                                   # [E,G,C,d]
+    gath = eout[top_i, gidx, posc]                            # [G,s,k,d]
+    w = (top_p * keep.float()).to(xg.dtype)
+    y = torch.einsum("gskd,gsk->gsd", gath, w)
+    return y, (top_i, probs)
+
+
 def apply_moe(p, x, cfg, *, impl="einsum", capacity=None):
     """x: [B, S, d] -> (y [B, S, d], (top_i, probs)).
 
-    Dispatch groups are the batch rows (G = B, s = S), or chunks of
-    ``cfg.moe_group_size`` tokens when that divides S.  Only the dense
-    ``"einsum"`` dispatch is ported; the scatter dispatch raises."""
-    if impl != "einsum":
-        raise NotImplementedError(f"apply_moe impl={impl!r} is not ported "
-                                  f"(only 'einsum')")
+    Dispatch groups are the batch rows (G = B, s = S); the einsum dispatch
+    splits them further into chunks of ``cfg.moe_group_size`` tokens when
+    that divides S, as the JAX package does (its scatter dispatch has no
+    dense tensor to shrink and does not)."""
+    if impl not in ("einsum", "scatter"):
+        raise ValueError(f"apply_moe impl={impl!r} (einsum or scatter)")
     B, S, d = x.shape
     g = cfg.moe_group_size
-    if g and S > g and S % g == 0:
+    if impl == "einsum" and g and S > g and S % g == 0:
         xg, s_eff = x.reshape(B * (S // g), g, d), g
     else:
         xg, s_eff = x, S
-    y, aux = _apply_einsum(p, xg, cfg, capacity or group_capacity(s_eff, cfg))
+    fn = _apply_scatter if impl == "scatter" else _apply_einsum
+    y, aux = fn(p, xg, cfg, capacity or group_capacity(s_eff, cfg))
     y = y.reshape(B, S, d)
     if "shared" in p:
         y = y + apply_mlp(p["shared"], x, cfg)

@@ -117,7 +117,8 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models.layers import apply_mlp, apply_norm, silu
 from repro_torch.models.model import (apply_cross, check_supported,
-                                      decode_inputs, init_cache, refusal)
+                                      decode_inputs, init_cache,
+                                      lm_head_weight, refusal)
 from repro_torch.models.moe import route
 
 
@@ -1065,7 +1066,7 @@ class ZipServer:
         if self._auto_depth:
             self._tune_depth()
         self.engine.note_step()   # cache-window and live-planner step clocks
-        return x @ p["lm_head"]["w"], caches
+        return x @ lm_head_weight(p, cfg), caches
 
     def decode_rows(self, tokens, caches: list, positions, owners=None
                     ) -> Tuple[torch.Tensor, list]:  # hot-path
@@ -1117,7 +1118,7 @@ class ZipServer:
         if self._auto_depth:
             self._tune_depth()
         self.engine.note_step()   # cache-window and live-planner step clocks
-        return x @ p["lm_head"]["w"], caches
+        return x @ lm_head_weight(p, cfg), caches
 
     def request_summary(self) -> Dict[int, Dict[str, float]]:
         """Per-request cache accounting (continuous batching): expert

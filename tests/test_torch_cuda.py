@@ -675,3 +675,74 @@ def test_jamba_device_slab_step_on_card(cuda, tmp_path):
         assert srv.pool._slot[0]["ssm"]["state"].is_cuda
     finally:
         zs.close()
+
+
+# ---------------------------------------------------------------------------
+# training on the card (plain PyTorch: no kernel of the port runs)
+# ---------------------------------------------------------------------------
+def _train_batch(cfg, dev, seed=0):
+    g = np.random.default_rng(seed)
+    toks = g.integers(0, cfg.vocab_size, (2, 33), dtype=np.int32)
+    return {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(dev),
+            "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev)}
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One make_train_step (int8 error feedback on) of the qwen2-moe-a2.7b
+    smoke config (2 layers) on the card against the same step on the CPU
+    from the same seeded parameters: loss within 1e-3 relative (bf16
+    matmuls add in other orders on the two); every parameter within
+    2.5e-4 + 2^-7 relative of the CPU's: a first AdamW step moves a weight
+    by lr (1e-4) times |u| <= 1 plus the decay, so two devices that
+    quantise a gradient entry to other int8 levels part by at most 2 lr,
+    plus a bf16 rounding."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    cfg = get_smoke_config("qwen2-moe-a2.7b", n_layers=2)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        params = tree_map(lambda t: t.to(dev),
+                          init_params(cfg, seed=0, device="cpu"))
+        st = init_train_state(params, grad_compress=True)
+        step = make_train_step(cfg, lr=1e-4, warmup=0, total_steps=10,
+                               grad_compress=True)
+        st, m = step(st, _train_batch(cfg, dev))
+        out[dev.type] = (float(m["loss"]), st)
+    (lc, sc), (lg, sg) = out["cpu"], out["cuda"]
+    assert sg.params["layers"][0]["ffn"]["w_up"].is_cuda
+    assert abs(lc - lg) <= 1e-3 * abs(lc), (lc, lg)
+    for a, b in zip(tree_leaves(sc.params), tree_leaves(sg.params)):
+        torch.testing.assert_close(a.float(), b.cpu().float(),
+                                   rtol=2.0 ** -7, atol=2.5e-4)
+
+
+def test_checkpoint_roundtrip_cuda_cpu_cuda(cuda, tmp_path):
+    """A TrainState on the card, saved, restored onto the CPU, saved
+    again and restored onto the card: every leaf bit-exact, bf16 kept."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_step import init_train_state
+    cfg = get_smoke_config("qwen2-moe-a2.7b", n_layers=2)
+    st = init_train_state(init_params(cfg, seed=1, device=cuda),
+                          grad_compress=True)
+    tree = st._asdict()
+    a = CheckpointManager(str(tmp_path / "a"), async_write=True)
+    a.save(1, tree)
+    a.wait()
+    host, _, _ = a.restore(tree, device="cpu")
+    b = CheckpointManager(str(tmp_path / "b"))
+    b.save(1, host)
+    back, step, _ = b.restore(tree, device=cuda)
+    assert step == 1
+    for x, h, y in zip(tree_leaves(tree), tree_leaves(host),
+                       tree_leaves(back)):
+        assert h.device.type == "cpu" and y.device.type == "cuda"
+        assert x.dtype == h.dtype == y.dtype and x.shape == y.shape
+        assert _same(x.cpu(), h) if x.dtype == torch.bfloat16 else \
+            torch.equal(x.cpu(), h)
+        assert torch.equal(x, y) if x.dtype != torch.bfloat16 else _same(x, y)

@@ -469,5 +469,9 @@ def test_zipserver_refuses_embeddings_input():
     sw = _refused_cfg(SWITCH)
     assert refusal(sw, "model") is None and refusal(sw, "zipserver") is None
     assert refusal(sw, "rows") is not None
+    # tied embeddings tie the head to embed.tok: switch has one, a config
+    # fed embeddings does not
     tied = dataclasses.replace(sw, tie_embeddings=True)
-    assert refusal(tied, "model") is not None
+    assert refusal(tied, "model") is None
+    assert refusal(dataclasses.replace(cfg, tie_embeddings=True),
+                   "model") is not None

@@ -31,7 +31,11 @@ def _modules():
 
 def test_imports_without_jax():
     """Every module of the port imports in a process where ``import jax``
-    fails."""
+    fails: the training modules and both CLIs among them."""
+    mods = _modules()
+    for m in ("training.optimizer", "training.data", "training.train_step",
+              "training.checkpoint", "launch.train", "launch.serve"):
+        assert f"repro_torch.{m}" in mods, m
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'ml_dtypes', 'repro'):\n"
             "    sys.modules[m] = None\n"
@@ -95,6 +99,9 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
     KVPagePool(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_main(["--mode", "resident", "--requests", "1"])
+    from repro_torch.launch.train import main as train_main
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_main(["--steps", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
