@@ -2797,7 +2797,8 @@ def train_full_width(torch, np, dev):
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.models.model import train_loss
-    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.optimizer import (adamw_update, cosine_lr,
+                                                tree_leaves)
     from repro_torch.training.train_step import (_compress_ef,
                                                  init_train_state,
                                                  loss_and_grads,
@@ -2838,6 +2839,19 @@ def train_full_width(torch, np, dev):
         check(np.isfinite(loss) and np.isfinite(gnorm),
               f"train: step {i}: loss {loss}, gnorm {gnorm}")
     peak = torch.cuda.max_memory_allocated() - base
+    # where a step's time goes: one more step, its halves timed apart
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, grads = loss_and_grads(state.params, cfg, batch, remat=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adamw_update(grads, state.opt, state.params,
+                 lr=cosine_lr(state.opt.step, peak=TRAIN_LR, warmup=2,
+                              total=TRAIN_STEPS))
+    torch.cuda.synchronize()
+    split = {"loss_and_grads_s": t1 - t0,
+             "adamw_s": time.perf_counter() - t1}
+    del grads
     check(losses[-1] < losses[0] - TRAIN_MIN_DROP,
           f"train: loss fell from {losses[0]} to {losses[-1]}, less than "
           f"{TRAIN_MIN_DROP}")
@@ -2850,7 +2864,7 @@ def train_full_width(torch, np, dev):
         step_flops=flops["step"], flop_share=flops["step"] / step_s
         / BF16_FLOP_PER_S, capacity_slots=flops["capacity_slots"],
         routed_pairs=flops["routed_pairs"], capacity=flops["capacity"],
-        peak_bytes=peak, peak_over_reckoned=peak / reckoned)
+        peak_bytes=peak, peak_over_reckoned=peak / reckoned, split=split)
     print(f"train (a): {ARCH} at full width, depth {TRAIN_LAYERS}: "
           f"{n_params} params, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
           f"lr {TRAIN_LR} (warmup 2 of {TRAIN_STEPS}); losses "
@@ -2866,7 +2880,9 @@ def train_full_width(torch, np, dev):
           f"{numbers['flop_share'] * 100:.2f}% of "
           f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; peak allocated "
           f"{peak / 1e9:.3f} GB against {reckoned / 1e9:.3f} GB of params, "
-          f"grads and moments", flush=True)
+          f"grads and moments; a 9th step: loss and grads "
+          f"{split['loss_and_grads_s'] * 1e3:.2f} ms, AdamW "
+          f"{split['adamw_s'] * 1e3:.2f} ms", flush=True)
 
     # -- (b): one step each way at the same width ----------------------
     params = state.params
