@@ -24,7 +24,10 @@ Tolerances, each with its reason:
   switch-large-128's attention ``wk`` by 2.01%, held at 3% in bf16;
 * a 10-step ``make_train_step`` trajectory on granite-8b against the
   reference's jitted one: every loss within 2e-3 absolute (bf16 sums in
-  other orders, compounded over ten updates);
+  other orders, compounded over ten updates; 6.4e-4 measured), 5e-3 with
+  ``grad_compress`` (a gradient entry the two packages put on either
+  side of a half quantisation step takes another int8 level; 1.7e-3
+  measured);
 * within the port: remat ≡ no remat bit for bit (the same ops recomputed),
   scatter ≡ einsum within 1e-4 in f32 as ``tests/test_moe.py`` holds the
   reference's two;
@@ -397,7 +400,8 @@ def test_train_trajectory_matches_reference(grad_compress):
         want.append(float(jm["loss"]))
         got.append(float(m["loss"]))
         assert float(m["lr"]) == pytest.approx(float(jm["lr"]), abs=1e-9)
-    assert np.abs(np.subtract(got, want)).max() <= 2e-3, (got, want)
+    tol = 5e-3 if grad_compress else 2e-3
+    assert np.abs(np.subtract(got, want)).max() <= tol, (got, want)
     assert (st.err is None) == (not grad_compress)
     assert got[-1] < got[0]
 
