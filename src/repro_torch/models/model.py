@@ -403,7 +403,8 @@ def train_loss(p, cfg, batch, *, remat=True, moe_impl="einsum",
         mrope_positions=batch.get("mrope_positions"), remat=remat)
     labels = batch["labels"].long()
     logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = -torch.take_along_dim(logp, labels.clamp(min=0)[..., None],
+                                dim=-1)[..., 0]
     mask = (labels >= 0).float()
     loss = (nll * mask).sum() / mask.sum().clamp(min=1.0)
     return loss + aux_weight * aux, {"nll": loss, "aux": aux}
