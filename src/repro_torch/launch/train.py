@@ -1,4 +1,4 @@
-"""End-to-end training driver of the port, on the CUDA card
+"""End-to-end training CLI of the port, on the CUDA card
 (``--device cpu`` runs it on the CPU):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
