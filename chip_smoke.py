@@ -201,9 +201,35 @@ failure exits non-zero:
      saved one) and 4 more steps;
    * the train CLI once as a subprocess (granite-8b, ``tiny``, 20 steps,
      checkpoints): its final loss below its step-0 loss.
-9. One JSON line with each kernel's launches on its path, error, times and
-   bound; then the result line.  Each phase's wall time is printed as it
-   ends.
+9. The multi-rank layer, as 4 ranks that share the card over ``gloo``
+   (NCCL refuses two ranks on one GPU), spawned once
+   (``repro_torch.distributed.launch.spawn_ranks``); the parent runs each
+   path's one-process counterpart first, on the same seeded inputs:
+
+   * (a) sequence-sharded GQA decode: qwen2-moe-a2.7b at every published
+     width, depth 24 -> 2, f32, B = 4, a seeded cache of T = 4096 split
+     1024 positions a rank over a 4-wide ``model`` mesh axis; three
+     ``decode_step(attn_impl="seqshard")`` steps writing in shard 0, an
+     interior shard and the last one.  Each rank's logits within 1e-5 of
+     the parent's default ``decode_step`` (the reference test's limit);
+     the gathered shards bit-equal to the default path's cache but for
+     the rows written after the first layer, whose inputs carry the
+     combine's other summation order (within 1e-5);
+   * (b) the same for sequence-sharded MLA decode: deepseekv2-lite at
+     every width, depth 27 -> 3;
+   * (c) the GPipe pipeline: qwen2-moe-a2.7b at every width, depth 24 ->
+     4, bf16, 2 stage ranks, 4 micro-batches of [2, 128]: bit-identical to
+     the parent's sequential pass over the stack;
+   * (d) each rank's collective ledger against the reckoning: 3 f32
+     all-reduces per attention layer and step; M + P - 1 permutes of one
+     micro-batch's activation and one all-reduce of the result a stage;
+   * (e) no kernel launches, in the parent or a rank.
+
+   Wall and per-step times print beside the default path's; they are 4
+   processes sharing one card, not a speedup measurement.
+10. One JSON line with each kernel's launches on its path, error, times
+   and bound; then the result line.  Each phase's wall time is printed as
+   it ends.
 """
 from __future__ import annotations
 
@@ -358,6 +384,20 @@ SCATTER_LOSS_REL = 1e-3
 CKPT_LOSS_ABS = 1e-3
 TRAIN_CLI_ARGS = ("--arch", "granite-8b", "--preset", "tiny", "--steps",
                   "20")
+# phase 9: the multi-rank layer as ranks sharing the card over gloo
+MR_RANKS = 4                 # the seq-sharded decode's model axis
+MR_BATCH, MR_SEQ = 4, 4096   # 1024 cache positions a rank
+MR_GQA_LAYERS = N_LAYERS     # qwen2-moe-a2.7b, depth 24 -> 2
+MR_MLA_LAYERS = MLA_LAYERS   # deepseekv2-lite, depth 27 -> 3
+MR_PIPE_LAYERS = 4           # qwen2-moe-a2.7b, depth 24 -> 4, bf16
+MR_PIPE_STAGES = 2
+MR_PIPE_MICRO, MR_PIPE_MB = 4, (2, 128)
+MR_FILL_STD = 0.5            # the seeded cache's entries
+# seq-sharded vs default decode in f32: one function, the softmax and the
+# value sum added in another order (per shard, then across ranks); the
+# reference's seq-sharded test holds its decode to this
+MR_REL = 1e-5
+MR_TIMEOUT_S = 600
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12     # dense bf16 tensor-core peak
 # ragged GEMM vs its f32 plain version: both sum in f32 but in another
@@ -3075,6 +3115,335 @@ def train_phase(torch, np, dev):
     return numbers
 
 
+# ----------------------------------------------------------------------------
+# phase 9: the multi-rank layer
+# ----------------------------------------------------------------------------
+def mr_plan() -> dict:
+    """Phase 9's sizes, handed to the ranks (a rank imports this file
+    afresh): batch, cache length, the seq-sharded steps' write positions
+    (in shard 0, an interior shard and the last of MR_RANKS), the
+    pipeline's stages, micro-batches and micro-batch shape."""
+    return {"batch": MR_BATCH, "seq": MR_SEQ,
+            "positions": (int(0.17 * MR_SEQ), int(0.61 * MR_SEQ),
+                          MR_SEQ - 1),
+            "stages": MR_PIPE_STAGES, "micro": MR_PIPE_MICRO,
+            "mb": MR_PIPE_MB}
+
+
+def mr_configs():
+    """(seq-sharded GQA, seq-sharded MLA, pipeline) configs: every width
+    as published, depth cut."""
+    from repro_torch.configs import get_config
+    return (dataclasses.replace(get_config(ARCH), n_layers=MR_GQA_LAYERS,
+                                dtype="float32"),
+            dataclasses.replace(get_config(MLA_ARCH),
+                                n_layers=MR_MLA_LAYERS, dtype="float32"),
+            dataclasses.replace(get_config(ARCH), n_layers=MR_PIPE_LAYERS))
+
+
+def mr_decode_inputs(torch, np, dev, cfg, plan):
+    """Seeded params, full caches filled with seeded values, and the
+    steps' (pos, tokens): the same bits in every process."""
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.serving.kv_cache import tree_leaves
+    params = init_params(cfg, seed=SEED, device=dev)
+    caches = init_cache(cfg, plan["batch"], plan["seq"], device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 1)
+    for t in tree_leaves(caches):
+        t.copy_(torch.randn(t.shape, generator=g, device=dev) * MR_FILL_STD)
+    rng = np.random.default_rng(SEED)
+    steps = [(pos, torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (plan["batch"], 1))).to(dev))
+        for pos in plan["positions"]]
+    return params, caches, steps
+
+
+def mr_pipe_inputs(torch, dev, cfg, plan):
+    """Seeded params and micro-batches [M, B, S, d] of the pipeline."""
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import dtype_of
+    params = init_params(cfg, seed=SEED, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 2)
+    x = torch.randn((plan["micro"], *plan["mb"], cfg.d_model), generator=g,
+                    device=dev).to(dtype_of(cfg))
+    return params, x
+
+
+def mr_timed(torch, dev, fn):
+    """(fn(), wall ms) with the card synchronised on both sides."""
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def mr_rank_decode(torch, np, dev, cfg, mesh, plan):
+    """One rank's seq-sharded decode steps: logits, its cache shards,
+    step times and ledger."""
+    from repro_torch.distributed.collectives import CollectiveLedger
+    from repro_torch.models import decode_step
+    from repro_torch.models.decode_attention import seqshard_caches
+    from repro_torch.serving.kv_cache import map_tree
+    params, caches, steps = mr_decode_inputs(torch, np, dev, cfg, plan)
+    local = seqshard_caches(caches, mesh)
+    del caches
+    torch.cuda.empty_cache()
+    ledger = CollectiveLedger()
+    logits, ms = [], []
+    for pos, tok in steps:
+        (lg, local), t = mr_timed(torch, dev, lambda: decode_step(
+            params, cfg, tok, local, pos, attn_impl="seqshard", mesh=mesh,
+            ledger=ledger))
+        logits.append(lg.cpu().numpy())
+        ms.append(t)
+    out = {"logits": logits, "step_ms": ms, "ledger": ledger.summary(),
+           "caches": map_tree(lambda t: t.cpu().numpy(),
+                              [c["kv"] for c in local])}
+    del params, local
+    torch.cuda.empty_cache()
+    return out
+
+
+def multirank_rank(rank, world, dev_type, cfgs, plan):
+    """Phase 9's rank body (run by ``spawn_ranks``): (a) and (b) on a
+    4-wide ``model`` axis, then (c) on ranks 0..MR_PIPE_STAGES-1."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.collectives import CollectiveLedger
+    from repro_torch.distributed.pipeline import (pipeline_forward,
+                                                  stage_layers)
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    if dev_type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    mesh = make_mesh((world,), ("model",), dev_type)
+    n_st = plan["stages"]
+    stages = dist.new_group(list(range(n_st)))
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else \
+        torch.device("cpu")
+    out = {"ready_s": time.perf_counter() - t_start}
+    out["gqa"] = mr_rank_decode(torch, np, dev, cfgs[0], mesh, plan)
+    out["mla"] = mr_rank_decode(torch, np, dev, cfgs[1], mesh, plan)
+    cfg = cfgs[2]
+    if rank < n_st:
+        params, x = mr_pipe_inputs(torch, dev, cfg, plan)
+        layers = stage_layers(params["layers"], cfg, rank, n_st)
+        del params
+        torch.cuda.empty_cache()
+        ledger = CollectiveLedger()
+        y, ms = mr_timed(torch, dev, lambda: pipeline_forward(
+            layers, x, cfg, stages, ledger=ledger))
+        out["pipe"] = {"bits": y.view(torch.int16).cpu().numpy(),
+                       "ms": ms, "ledger": ledger.summary()}
+        del layers, x, y
+        torch.cuda.empty_cache()
+    dist.barrier()
+    out["launches"] = dict(_build.LAUNCHES)
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def mr_default_decode(torch, np, dev, cfg, plan):
+    """The one-process counterpart of a rank's decode: the default
+    ``decode_step`` on the same inputs."""
+    from repro_torch.models import decode_step
+    from repro_torch.serving.kv_cache import map_tree
+    params, caches, steps = mr_decode_inputs(torch, np, dev, cfg, plan)
+    logits, ms = [], []
+    for pos, tok in steps:
+        (lg, caches), t = mr_timed(torch, dev, lambda: decode_step(
+            params, cfg, tok, caches, pos))
+        logits.append(lg.cpu().numpy())
+        ms.append(t)
+    out = {"logits": logits, "step_ms": ms,
+           "caches": map_tree(lambda t: t.cpu().numpy(),
+                              [c["kv"] for c in caches])}
+    del params, caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def mr_reckon_decode(cfg, plan) -> dict:
+    """A seq-sharded rank's collectives over the steps: the max and the
+    normaliser [B, H] and the numerator [B, H, D] (MLA: [B, H, C]), f32,
+    per attention layer and step."""
+    from repro_torch.models.model import mixer_kind
+    n_attn = sum(mixer_kind(cfg, i) == "attn" for i in range(cfg.n_layers))
+    width = cfg.kv_lora_rank if cfg.attn == "mla" else cfg.head_dim
+    per = (2 + width) * plan["batch"] * cfg.n_heads * 4
+    n = n_attn * len(plan["positions"])
+    return {"collective_ops": {"all-reduce": 3 * n},
+            "collective_bytes": {"all-reduce": per * n}}
+
+
+def mr_check_decode(np, what, cfg, plan, want, ranks) -> dict:
+    """Phase 9 (a)/(b): every rank's logits against the default path's,
+    the gathered cache shards against its cache, and the ledgers."""
+    worst = 0.0
+    for r, res in enumerate(ranks):
+        for i, (got, ref) in enumerate(zip(res["logits"], want["logits"])):
+            check(got.shape == ref.shape and np.isfinite(got).all(),
+                  f"multirank {what}: rank {r} step {i}: logits "
+                  f"{got.shape}")
+            rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+            check(rel <= MR_REL, f"multirank {what}: rank {r} step {i}: "
+                  f"logits {rel:.3e} of max |logit| off the default "
+                  f"decode (limit {MR_REL})")
+            worst = max(worst, rel)
+    written = np.zeros(plan["seq"], bool)
+    written[list(plan["positions"])] = True
+    differ, written_rel = {}, 0.0
+    for layer, leaves in enumerate(want["caches"]):
+        for name, ref in leaves.items():
+            got = np.concatenate([res["caches"][layer][name]
+                                  for res in ranks], axis=1)
+            check(got.shape == ref.shape, f"multirank {what}: layer "
+                  f"{layer} {name}: gathered {got.shape} != {ref.shape}")
+            g32, r32 = got.view(np.uint32), ref.view(np.uint32)
+            same = g32 == r32
+            check(same[:, ~written].all(), f"multirank {what}: layer "
+                  f"{layer} {name}: a row no step wrote differs")
+            n_diff = int((~same[:, written]).sum())
+            check(layer > 0 or n_diff == 0, f"multirank {what}: layer 0 "
+                  f"{name}: {n_diff} written entries differ from the "
+                  f"default path's")
+            differ[f"{layer}/{name}"] = n_diff
+            written_rel = max(written_rel, float(
+                np.abs(got[:, written] - ref[:, written]).max()
+                / np.abs(ref[:, written]).max()))
+    check(written_rel <= MR_REL, f"multirank {what}: written cache rows "
+          f"{written_rel:.3e} off")
+    reckoned = mr_reckon_decode(cfg, plan)
+    for r, res in enumerate(ranks):
+        got = {k: res["ledger"][k] for k in reckoned}
+        check(got == reckoned, f"multirank {what}: rank {r} ledger {got} "
+              f"!= the reckoning {reckoned}")
+    numbers = {
+        "logits_rel_max": worst, "written_rows_rel_max": written_rel,
+        "written_entries_differing": differ,
+        "default_step_ms": want["step_ms"],
+        "rank_step_ms": [res["step_ms"] for res in ranks],
+        "ledger": reckoned}
+    print(f"multirank {what}: {cfg.name}, depth {cfg.n_layers}, f32, B "
+          f"{plan['batch']}, T {plan['seq']} in {len(ranks)} shards of "
+          f"{plan['seq'] // len(ranks)}, writes at {plan['positions']}: every "
+          f"rank's logits within {worst:.3e} of max |logit| of the default "
+          f"decode; cache shards bit-equal but for the written rows of "
+          f"layers > 0 (entries differing: {differ}; within "
+          f"{written_rel:.3e}); ledger per rank {reckoned}; step ms "
+          f"default {[round(t, 2) for t in want['step_ms']]}, rank 0 "
+          f"{[round(t, 2) for t in ranks[0]['step_ms']]} (4 processes "
+          f"sharing one card over gloo: not a speedup measurement)",
+          flush=True)
+    return numbers
+
+
+def mr_check_pipe(torch, np, dev, cfg, plan, ranks) -> dict:
+    """Phase 9 (c): the stage ranks' results against the parent's
+    sequential pass over the same stack and micro-batches."""
+    from repro_torch.models.model import _superblock
+    params, x = mr_pipe_inputs(torch, dev, cfg, plan)
+    B, S = plan["mb"]
+    n_st, micro = plan["stages"], plan["micro"]
+    positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
+        B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    seq, seq_ms = mr_timed(torch, dev, lambda: torch.stack([_superblock(
+        params["layers"], xm, aux, cfg, positions, None, None, "einsum")[0]
+        for xm in x]))
+    want = seq.view(torch.int16).cpu().numpy()
+    check(bool(torch.isfinite(seq).all()), "multirank pipe: the sequential "
+          "pass is not finite")
+    del params, x, seq
+    torch.cuda.empty_cache()
+    act = B * S * cfg.d_model * 2
+    ticks = micro + n_st - 1
+    reckoned = {"collective_ops": {"collective-permute": ticks,
+                                   "all-reduce": 1},
+                "collective_bytes": {"collective-permute": ticks * act,
+                                     "all-reduce": micro * act}}
+    for r in range(n_st):
+        res = ranks[r]["pipe"]
+        n_diff = int((res["bits"] != want).sum())
+        check(n_diff == 0, f"multirank pipe: stage rank {r}: {n_diff} of "
+              f"{want.size} values differ from the sequential pass")
+        got = {k: res["ledger"][k] for k in reckoned}
+        check(got == reckoned, f"multirank pipe: rank {r} ledger {got} != "
+              f"the reckoning {reckoned}")
+    for r in range(n_st, len(ranks)):
+        check("pipe" not in ranks[r], f"multirank pipe: rank {r} ran a "
+              f"stage")
+    numbers = {"sequential_ms": seq_ms,
+               "pipeline_ms": [ranks[r]["pipe"]["ms"] for r in range(n_st)],
+               "ledger": reckoned}
+    print(f"multirank pipe: {cfg.name}, depth {cfg.n_layers}, bf16, "
+          f"{n_st} stages, {micro} micro-batches of "
+          f"{list(plan['mb'])}: every stage rank's result bit-identical to "
+          f"the sequential pass; ledger per stage {reckoned}; sequential "
+          f"{seq_ms:.2f} ms, pipeline "
+          f"{[round(t, 2) for t in numbers['pipeline_ms']]} ms (processes "
+          f"sharing one card, activations staged through the host: not a "
+          f"speedup measurement)", flush=True)
+    return numbers
+
+
+def multirank_phase(torch, np, dev):
+    """Phase 9: the parent's one-process runs, then the ranks, then the
+    checks; no kernel may launch anywhere."""
+    import importlib
+    from repro_torch.distributed.launch import spawn_ranks
+    from repro_torch.kernels import _build
+    _build.reset_launches()
+    cfgs, plan = mr_configs(), mr_plan()
+    walls = {}
+    t0 = time.perf_counter()
+    want = {"gqa": mr_default_decode(torch, np, dev, cfgs[0], plan),
+            "mla": mr_default_decode(torch, np, dev, cfgs[1], plan)}
+    walls["default"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # by module name, so the ranks import this file as ``chip_smoke``
+    body = importlib.import_module("chip_smoke").multirank_rank
+    ranks = spawn_ranks(body, MR_RANKS, timeout_s=MR_TIMEOUT_S,
+                        args=(dev.type, cfgs, plan))
+    walls["ranks"] = time.perf_counter() - t0
+    numbers = {
+        "ranks": MR_RANKS, "backend": "gloo",
+        "rank_ready_s": [r["ready_s"] for r in ranks],
+        "rank_wall_s": [r["wall_s"] for r in ranks],
+        # process start, imports, the card's context and the group, and
+        # the results' trip back
+        "spawn_overhead_s": walls["ranks"] - max(r["wall_s"]
+                                                 for r in ranks),
+        "seqshard_gqa": mr_check_decode(np, "(a) gqa", cfgs[0], plan,
+                                        want["gqa"],
+                                        [r["gqa"] for r in ranks]),
+        "seqshard_mla": mr_check_decode(np, "(b) mla", cfgs[1], plan,
+                                        want["mla"],
+                                        [r["mla"] for r in ranks])}
+    del want
+    t0 = time.perf_counter()
+    numbers["pipeline"] = mr_check_pipe(torch, np, dev, cfgs[2], plan,
+                                        ranks)
+    walls["pipe_sequential"] = time.perf_counter() - t0
+    launched = [dict(_build.LAUNCHES)] + [r["launches"] for r in ranks]
+    check(not any(any(c.values()) for c in launched),
+          f"multirank: a kernel launched on the multi-rank paths: "
+          f"{launched}")
+    numbers["wall_s"] = walls
+    print(f"phase 9 parts (s): {json.dumps(walls)}; each rank's mesh "
+          f"ready after {[round(r['ready_s'], 1) for r in ranks]} s, done "
+          f"after {[round(r['wall_s'], 1) for r in ranks]} s; spawn "
+          f"overhead {numbers['spawn_overhead_s']:.1f} s", flush=True)
+    return numbers
+
+
 def cfg_moe_layers(cfg):
     return [i for i in range(cfg.n_layers) if cfg.moe_layer(i)]
 
@@ -3163,6 +3532,11 @@ def main():
     t0 = time.perf_counter()
     e2e["train"] = train_phase(torch, np, dev)
     walls["8"] = phase_wall("8", t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    e2e["multirank"] = multirank_phase(torch, np, dev)
+    walls["9"] = phase_wall("9", t0)
     e2e["phase_wall_s"] = walls
     # every kernel runs on some path, and every path runs its kernels; a
     # kernel's launches are its count on the first path that runs it

@@ -323,27 +323,47 @@ def _mla_decode_attend(p, x, cfg, q_nope, q_rope, ckv, k_rope, mask,
     query and the value projection into the output, so the scores and the
     weighted sum run over the latent; otherwise per-token K/V are rebuilt
     from it.  Both in f32; the same function in another order."""
-    B = x.shape[0]
     scale = _mla_scale(cfg)
-    wkv_b = p["wkv_b"].reshape(cfg.kv_lora_rank, cfg.n_heads,
-                               cfg.qk_nope_dim + cfg.v_head_dim).float()
     qr, kr, cf = q_rope.float(), k_rope.float(), ckv.float()
     if absorb:
-        w_k = wkv_b[:, :, :cfg.qk_nope_dim]                     # [C,H,Dn]
-        w_v = wkv_b[:, :, cfg.qk_nope_dim:]                     # [C,H,Dv]
-        q_c = torch.einsum("bshd,chd->bshc", q_nope.float(), w_k)
+        q_c, w_v = mla_absorb_q(p, cfg, q_nope)
         sc = (torch.einsum("bshc,btc->bhst", q_c, cf)
               + torch.einsum("bshd,btd->bhst", qr, kr)) * scale
         attn = torch.softmax(_where_mask(sc, mask), dim=-1)
         o_c = torch.einsum("bhst,btc->bshc", attn, cf)
-        out = torch.einsum("bshc,chd->bshd", o_c, w_v)
-    else:
-        kv = torch.einsum("btc,chd->bthd", cf, wkv_b)
-        k_nope, v = kv.split([cfg.qk_nope_dim, cfg.v_head_dim], dim=-1)
-        sc = (torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope)
-              + torch.einsum("bshd,btd->bhst", qr, kr)) * scale
-        attn = torch.softmax(_where_mask(sc, mask), dim=-1)
-        out = torch.einsum("bhst,bthd->bshd", attn, v)
+        return mla_absorb_out(p, x, cfg, o_c, w_v)
+    kv = torch.einsum("btc,chd->bthd", cf, _mla_wkv_b(p, cfg))
+    k_nope, v = kv.split([cfg.qk_nope_dim, cfg.v_head_dim], dim=-1)
+    sc = (torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope)
+          + torch.einsum("bshd,btd->bhst", qr, kr)) * scale
+    attn = torch.softmax(_where_mask(sc, mask), dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", attn, v)
+    return _mla_out(p, x, cfg, out)
+
+
+def _mla_wkv_b(p, cfg):
+    """``wkv_b`` in f32, its columns laid out [C, H, Dn + Dv]."""
+    return p["wkv_b"].reshape(cfg.kv_lora_rank, cfg.n_heads,
+                              cfg.qk_nope_dim + cfg.v_head_dim).float()
+
+
+def mla_absorb_q(p, cfg, q_nope):
+    """The absorbed form's query: q_nope [B,S,H,Dn] through the key half
+    of ``wkv_b`` -> (q_c [B,S,H,C] f32, the value half w_v [C,H,Dv] f32)."""
+    wkv_b = _mla_wkv_b(p, cfg)
+    w_k = wkv_b[:, :, :cfg.qk_nope_dim]
+    q_c = torch.einsum("bshd,chd->bshc", q_nope.float(), w_k)
+    return q_c, wkv_b[:, :, cfg.qk_nope_dim:]
+
+
+def mla_absorb_out(p, x, cfg, o_c, w_v):
+    """The absorbed form's output: the latent attention output o_c
+    [B,1,H,C] f32 through w_v, then ``wo`` -> y [B, 1, d]."""
+    return _mla_out(p, x, cfg, torch.einsum("bshc,chd->bshd", o_c, w_v))
+
+
+def _mla_out(p, x, cfg, out):
+    B = x.shape[0]
     out = out.to(x.dtype).reshape(B, 1, cfg.n_heads * cfg.v_head_dim)
     return out @ p["wo"]
 

@@ -42,7 +42,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import axis_index
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import decode_attention as da
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (apply_mlp, apply_norm, dtype_of,
@@ -194,6 +196,13 @@ def init_params(cfg, seed: int = 0, device=None) -> Dict[str, Any]:
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
+    return build_params(gen, cfg, dev)
+
+
+def build_params(gen, cfg, dev) -> Dict[str, Any]:
+    """The parameter tree drawn from `gen` on `dev`, with no check of the
+    config or the device: :func:`init_params` on its device; a tree of
+    shapes on the ``meta`` device (with a CPU generator)."""
     p: Dict[str, Any] = {"embed": init_embed(gen, cfg, dev)}
     if cfg.encoder_decoder:
         ecfg = enc_config(cfg)
@@ -424,13 +433,31 @@ def prefill(p, cfg, tokens=None, *, moe_impl="einsum", router_ids=None,
 # decode
 # ----------------------------------------------------------------------------
 def decode_step(p, cfg, tokens, caches, pos: int, router_ids=None, *,
-                embeds=None, mrope_positions=None):
+                embeds=None, mrope_positions=None, attn_impl="default",
+                mesh=None, batch_axes=None, ledger=None):
     """One decode step.  tokens: [B, 1] int (None with ``embeds`` [B, 1, d]
     for a config fed embeddings); caches: per-layer list (updated in
     place; an encoder-decoder's cross-attention reads its ``xkv``); pos:
     index of the new token; mrope_positions: [3, B, 1] or None.  Returns
     (logits [B,1,V], caches).  When `router_ids` is a list, the router's
-    [B,1,k] expert ids of each MoE layer are appended to it."""
+    [B,1,k] expert ids of each MoE layer are appended to it.
+
+    ``attn_impl="seqshard"`` runs each attention layer as the
+    sequence-sharded decode of ``models/decode_attention.py`` over the
+    ``model`` axis of `mesh` (a ``DeviceMesh``), charging its collectives
+    to `ledger` when given.  With `batch_axes` (mesh axis names) the
+    batch splits over those axes: the inputs stay the whole batch, this
+    rank decodes its B/dp rows and returns their logits.  `caches` are
+    this rank's (``decode_attention.seqshard_caches``)."""
+    if attn_impl not in ("default", "seqshard"):
+        raise ValueError(f"attn_impl must be 'default' or 'seqshard', got "
+                         f"{attn_impl!r}")
+    seqshard = attn_impl == "seqshard"
+    if seqshard:
+        if mesh is None:
+            raise ValueError("attn_impl='seqshard' needs a mesh")
+        tokens, embeds, mrope_positions = _local_rows(
+            mesh, batch_axes, tokens, embeds, mrope_positions)
     x = decode_inputs(p, cfg, tokens, pos, embeds)
     mrope = mrope_positions if cfg.mrope else None
     for lp, cache in zip(p["layers"], caches):
@@ -438,7 +465,14 @@ def decode_step(p, cfg, tokens, caches, pos: int, router_ids=None, *,
         if "mamba" in lp:
             y, _ = mamba_lib.mamba_decode(lp["mamba"], h, cfg, cache["ssm"])
         elif cfg.attn == "mla":
-            y, _ = attn_lib.mla_decode(lp["attn"], h, cfg, cache["kv"], pos)
+            y, _ = (da.mla_decode_seqsharded(lp["attn"], h, cfg, cache["kv"],
+                                             pos, mesh, ledger=ledger)
+                    if seqshard else
+                    attn_lib.mla_decode(lp["attn"], h, cfg, cache["kv"], pos))
+        elif seqshard:
+            y, _ = da.gqa_decode_seqsharded(lp["attn"], h, cfg, cache["kv"],
+                                            pos, mesh, mrope_positions=mrope,
+                                            ledger=ledger)
         else:
             y, _ = attn_lib.gqa_decode(lp["attn"], h, cfg, cache["kv"], pos,
                                        mrope_positions=mrope)
@@ -456,3 +490,16 @@ def decode_step(p, cfg, tokens, caches, pos: int, router_ids=None, *,
             x = x + y2
     x = apply_norm(p["final_norm"], x, cfg)
     return x @ lm_head_weight(p, cfg), caches
+
+
+def _local_rows(mesh, batch_axes, tokens, embeds, mrope_positions):
+    """This rank's rows of the decode inputs when the batch splits over
+    the mesh axes `batch_axes` (all rows when None)."""
+    r, n = axis_index(mesh, batch_axes)
+    B = (tokens if tokens is not None else embeds).shape[0]
+    if B % n:
+        raise ValueError(f"batch {B} does not split over {n} ranks")
+    rows = slice(r * (B // n), (r + 1) * (B // n))
+    return (None if tokens is None else tokens[rows],
+            None if embeds is None else embeds[rows],
+            None if mrope_positions is None else mrope_positions[:, rows])

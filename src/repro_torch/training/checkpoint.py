@@ -16,8 +16,8 @@ corrupts the restore path (restore picks the newest directory with
 The async writer copies every leaf to the host before its thread starts,
 so the caller may update the tensors at once; a failed write surfaces at
 the next ``wait()`` or ``save()``.  ``restore(..., device=)`` places the
-leaves on a device: the one-device counterpart of the JAX package's
-re-mesh on restore.
+leaves on a device, and ``restore(..., shardings=)`` re-meshes them: the
+JAX package's ``restore(shardings=)``.
 """
 from __future__ import annotations
 
@@ -30,6 +30,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import shard_local
 
 
 def _flatten(tree) -> Dict[str, Any]:
@@ -172,9 +176,16 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, template: Any, *, step: Optional[int] = None,
-                device=None) -> tuple:
+                device=None, shardings: Any = None) -> tuple:
         """Returns (tree, step, extra): `template`'s structure with torch
-        tensors on `device` (the CPU when None)."""
+        tensors on `device` (the CPU when None).
+
+        `shardings` (a tree like `template` of
+        ``distributed.sharding.NamedSharding``, as ``param_shardings``
+        gives; a None leaf stays whole) re-meshes on restore: each leaf
+        becomes a ``DTensor`` on its sharding's mesh whose local tensor is
+        this rank's block, on the mesh's device type — whatever mesh, or
+        none, wrote the checkpoint."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -190,4 +201,25 @@ class CheckpointManager:
             arr = np.load(os.path.join(d, ent["file"]))
             flat[key] = _from_file(arr, ent["dtype"], dev)
         tree = _unflatten(flat, template)
+        if shardings is not None:
+            tree = _place(tree, shardings)
         return tree, step, manifest.get("extra", {})
+
+
+def _place(tree, shardings):
+    """Each leaf of `tree` with a sharding as a ``DTensor`` holding this
+    rank's block (no communication: every rank read the whole leaf)."""
+    if isinstance(tree, dict):
+        return {k: _place(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # NamedTuple
+        return type(tree)(*(_place(v, s) for v, s in zip(tree, shardings)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_place(v, s) for v, s in zip(tree, shardings))
+    if tree is None or shardings is None:
+        return tree
+    mesh = shardings.mesh
+    local = shard_local(tree, shardings.spec, mesh).to(
+        resolve_device(mesh.device_type))
+    return DTensor.from_local(local, mesh, shardings.placements,
+                              run_check=False, shape=tree.shape,
+                              stride=tree.stride())

@@ -746,3 +746,26 @@ def test_checkpoint_roundtrip_cuda_cpu_cuda(cuda, tmp_path):
         assert _same(x.cpu(), h) if x.dtype == torch.bfloat16 else \
             torch.equal(x.cpu(), h)
         assert torch.equal(x, y) if x.dtype != torch.bfloat16 else _same(x, y)
+
+
+def test_gloo_ranks_on_card(cuda, tmp_path):
+    """Two ranks sharing the card over gloo: a permute of a CUDA tensor
+    arrives (staged through pinned host memory) and is charged its
+    operand's bytes; a restore re-meshed onto a CUDA mesh puts each rank's
+    block on the card."""
+    import _torch_ranks
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.launch import spawn_ranks
+    from repro_torch.models import init_params
+    from repro_torch.training.checkpoint import CheckpointManager
+    cfg = get_smoke_config("qwen2-moe-a2.7b", n_layers=2)
+    params = init_params(cfg, seed=3, device="cpu")
+    CheckpointManager(str(tmp_path / "ckpt")).save(1, params)
+    res = spawn_ranks(_torch_ranks.device_rank, 2, timeout_s=300,
+                      args=(str(tmp_path / "ckpt"), params, cfg, "cuda"),
+                      store_dir=str(tmp_path))
+    for rank, (on_card, got, summary, blocks_ok) in enumerate(res):
+        assert on_card and blocks_ok
+        assert (got == (rank - 1) % 2 + 1).all()
+        assert summary["collective_bytes"] == {"collective-permute": 30}
+        assert summary["collective_ops"] == {"collective-permute": 1}

@@ -4,8 +4,8 @@
   ``chip_smoke.py`` imports ``jax``, ``ml_dtypes`` or anything of the JAX
   package ``repro`` (AST scan of every import statement);
 * its entry points run on the CUDA card unless the caller passes
-  ``device="cpu"``: with no card visible they raise instead of falling
-  back to the CPU.
+  ``device="cpu"`` (a mesh: ``device_type="cpu"``): with no card visible
+  they raise instead of falling back to the CPU.
 """
 import ast
 import os
@@ -34,7 +34,10 @@ def test_imports_without_jax():
     fails: the training modules and both CLIs among them."""
     mods = _modules()
     for m in ("training.optimizer", "training.data", "training.train_step",
-              "training.checkpoint", "launch.train", "launch.serve"):
+              "training.checkpoint", "launch.train", "launch.serve",
+              "launch.mesh", "distributed.sharding",
+              "distributed.collectives", "distributed.pipeline",
+              "distributed.launch", "models.decode_attention"):
         assert f"repro_torch.{m}" in mods, m
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'ml_dtypes', 'repro'):\n"
@@ -102,6 +105,11 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
     from repro_torch.launch.train import main as train_main
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_main(["--steps", "1"])
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh((1,), ("model",))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_production_mesh()
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -61,3 +61,24 @@ def test_ssm_phase_keeps_jamba_store_numbers(smoke, monkeypatch, tmp_path):
     assert numbers["mamba2"]["store_ratio"] == mamba
     assert numbers["mamba2"]["build_store_s"] > 0
     assert {"zipserver", "mamba2-resident"} <= set(numbers["mamba2"])
+
+
+def test_multirank_phase_rehearsed(smoke, monkeypatch):
+    """Phase 9 on 4 gloo ranks on the CPU at smoke widths: seq-sharded
+    decode within its limit of the default path, the layer-0 cache shards
+    bit-equal, the pipeline bit-identical to the sequential pass, each
+    ledger equal to its reckoning and no kernel launched."""
+    monkeypatch.syspath_prepend(str(REPO))     # the ranks import it
+    monkeypatch.setattr(smoke, "MR_SEQ", 64)
+    numbers = smoke.multirank_phase(torch, np, torch.device("cpu"))
+    for key in ("seqshard_gqa", "seqshard_mla"):
+        part = numbers[key]
+        assert part["logits_rel_max"] <= smoke.MR_REL
+        assert all(n == 0 for name, n in
+                   part["written_entries_differing"].items()
+                   if name.startswith("0/"))
+        assert part["ledger"]["collective_ops"]["all-reduce"] > 0
+    assert numbers["pipeline"]["ledger"]["collective_ops"] == {
+        "collective-permute": smoke.MR_PIPE_MICRO + smoke.MR_PIPE_STAGES - 1,
+        "all-reduce": 1}
+    assert len(numbers["rank_wall_s"]) == smoke.MR_RANKS
