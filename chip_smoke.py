@@ -398,6 +398,7 @@ MR_FILL_STD = 0.5            # the seeded cache's entries
 # reference's seq-sharded test holds its decode to this
 MR_REL = 1e-5
 MR_TIMEOUT_S = 600
+MR_PROBE_REPS = 20
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12     # dense bf16 tensor-core peak
 # ragged GEMM vs its f32 plain version: both sum in f32 but in another
@@ -3200,7 +3201,16 @@ def mr_rank_decode(torch, np, dev, cfg, mesh, plan):
             ledger=ledger))
         logits.append(lg.cpu().numpy())
         ms.append(t)
+    # what one of the step's all-reduces costs alone: the numerator's
+    # shape, crossing the host over gloo (median of MR_PROBE_REPS)
+    width = cfg.kv_lora_rank if cfg.attn == "mla" else cfg.head_dim
+    probe = torch.zeros((plan["batch"], 1, cfg.n_heads, width), device=dev)
+    group = mesh.get_group("model")
+    ar_ms = statistics.median(
+        mr_timed(torch, dev, lambda: torch.distributed.all_reduce(
+            probe, group=group))[1] for _ in range(MR_PROBE_REPS))
     out = {"logits": logits, "step_ms": ms, "ledger": ledger.summary(),
+           "allreduce_ms": ar_ms,
            "caches": map_tree(lambda t: t.cpu().numpy(),
                               [c["kv"] for c in local])}
     del params, local
@@ -3330,6 +3340,7 @@ def mr_check_decode(np, what, cfg, plan, want, ranks) -> dict:
         "written_entries_differing": differ,
         "default_step_ms": want["step_ms"],
         "rank_step_ms": [res["step_ms"] for res in ranks],
+        "rank_allreduce_ms": [res["allreduce_ms"] for res in ranks],
         "ledger": reckoned}
     print(f"multirank {what}: {cfg.name}, depth {cfg.n_layers}, f32, B "
           f"{plan['batch']}, T {plan['seq']} in {len(ranks)} shards of "
@@ -3339,9 +3350,12 @@ def mr_check_decode(np, what, cfg, plan, want, ranks) -> dict:
           f"layers > 0 (entries differing: {differ}; within "
           f"{written_rel:.3e}); ledger per rank {reckoned}; step ms "
           f"default {[round(t, 2) for t in want['step_ms']]}, rank 0 "
-          f"{[round(t, 2) for t in ranks[0]['step_ms']]} (4 processes "
-          f"sharing one card over gloo: not a speedup measurement)",
-          flush=True)
+          f"{[round(t, 2) for t in ranks[0]['step_ms']]}, one "
+          f"all-reduce of the numerator alone "
+          f"{[round(r['allreduce_ms'], 3) for r in ranks]} ms a rank, "
+          f"{reckoned['collective_ops']['all-reduce'] // len(plan['positions'])}"
+          f" a step (4 processes sharing one card over gloo: not a speedup "
+          f"measurement)", flush=True)
     return numbers
 
 
