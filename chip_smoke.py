@@ -226,7 +226,9 @@ failure exits non-zero:
    * (e) no kernel launches, in the parent or a rank.
 
    Wall and per-step times print beside the default path's; they are 4
-   processes sharing one card, not a speedup measurement.
+   processes sharing one card, not a speedup measurement.  On a machine
+   with a card for each rank the ranks take a card each over NCCL;
+   ``python3 chip_smoke.py --phase 9`` runs phase 9 alone.
 10. One JSON line with each kernel's launches on its path, error, times
    and bound; then the result line.  Each phase's wall time is printed as
    it ends.
@@ -3172,6 +3174,14 @@ def mr_pipe_inputs(torch, dev, cfg, plan):
     return params, x
 
 
+def mr_where(plan) -> str:
+    """How phase 9's ranks sit on the cards, for its printed lines."""
+    if plan["backend"] == "gloo":
+        return (f"{MR_RANKS} processes sharing one card over gloo: not a "
+                f"speedup measurement")
+    return f"{MR_RANKS} processes, a card each, over {plan['backend']}"
+
+
 def mr_timed(torch, dev, fn):
     """(fn(), wall ms) with the card synchronised on both sides."""
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -3229,15 +3239,17 @@ def multirank_rank(rank, world, dev_type, cfgs, plan):
                                                   stage_layers)
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import make_mesh
+    dev = torch.device("cpu")
     if dev_type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # a card of its own where there are enough, else the one card
+        dev = torch.device("cuda", rank % plan["cards"])
+        torch.cuda.set_device(dev)
     t_start = time.perf_counter()
     mesh = make_mesh((world,), ("model",), dev_type)
     n_st = plan["stages"]
     stages = dist.new_group(list(range(n_st)))
-    dev = torch.device(dev_type, 0) if dev_type == "cuda" else \
-        torch.device("cpu")
     out = {"ready_s": time.perf_counter() - t_start}
     out["gqa"] = mr_rank_decode(torch, np, dev, cfgs[0], mesh, plan)
     out["mla"] = mr_rank_decode(torch, np, dev, cfgs[1], mesh, plan)
@@ -3247,11 +3259,16 @@ def multirank_rank(rank, world, dev_type, cfgs, plan):
         layers = stage_layers(params["layers"], cfg, rank, n_st)
         del params
         torch.cuda.empty_cache()
+        # a first pass warms the shapes and the links; the second is timed,
+        # charged and checked
+        _, cold_ms = mr_timed(torch, dev, lambda: pipeline_forward(
+            layers, x, cfg, stages))
         ledger = CollectiveLedger()
         y, ms = mr_timed(torch, dev, lambda: pipeline_forward(
             layers, x, cfg, stages, ledger=ledger))
         out["pipe"] = {"bits": y.view(torch.int16).cpu().numpy(),
-                       "ms": ms, "ledger": ledger.summary()}
+                       "ms": ms, "cold_ms": cold_ms,
+                       "ledger": ledger.summary()}
         del layers, x, y
         torch.cuda.empty_cache()
     dist.barrier()
@@ -3354,8 +3371,7 @@ def mr_check_decode(np, what, cfg, plan, want, ranks) -> dict:
           f"all-reduce of the numerator alone "
           f"{[round(r['allreduce_ms'], 3) for r in ranks]} ms a rank, "
           f"{reckoned['collective_ops']['all-reduce'] // len(plan['positions'])}"
-          f" a step (4 processes sharing one card over gloo: not a speedup "
-          f"measurement)", flush=True)
+          f" a step ({mr_where(plan)})", flush=True)
     return numbers
 
 
@@ -3369,9 +3385,12 @@ def mr_check_pipe(torch, np, dev, cfg, plan, ranks) -> dict:
     positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
         B, S)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
-    seq, seq_ms = mr_timed(torch, dev, lambda: torch.stack([_superblock(
-        params["layers"], xm, aux, cfg, positions, None, None, "einsum")[0]
-        for xm in x]))
+    def sequential():
+        return torch.stack([_superblock(params["layers"], xm, aux, cfg,
+                                        positions, None, None, "einsum")[0]
+                            for xm in x])
+    _, seq_cold_ms = mr_timed(torch, dev, sequential)     # as the ranks
+    seq, seq_ms = mr_timed(torch, dev, sequential)
     want = seq.view(torch.int16).cpu().numpy()
     check(bool(torch.isfinite(seq).all()), "multirank pipe: the sequential "
           "pass is not finite")
@@ -3394,17 +3413,19 @@ def mr_check_pipe(torch, np, dev, cfg, plan, ranks) -> dict:
     for r in range(n_st, len(ranks)):
         check("pipe" not in ranks[r], f"multirank pipe: rank {r} ran a "
               f"stage")
-    numbers = {"sequential_ms": seq_ms,
+    numbers = {"sequential_ms": seq_ms, "sequential_cold_ms": seq_cold_ms,
                "pipeline_ms": [ranks[r]["pipe"]["ms"] for r in range(n_st)],
+               "pipeline_cold_ms": [ranks[r]["pipe"]["cold_ms"]
+                                    for r in range(n_st)],
                "ledger": reckoned}
     print(f"multirank pipe: {cfg.name}, depth {cfg.n_layers}, bf16, "
           f"{n_st} stages, {micro} micro-batches of "
           f"{list(plan['mb'])}: every stage rank's result bit-identical to "
           f"the sequential pass; ledger per stage {reckoned}; sequential "
-          f"{seq_ms:.2f} ms, pipeline "
-          f"{[round(t, 2) for t in numbers['pipeline_ms']]} ms (processes "
-          f"sharing one card, activations staged through the host: not a "
-          f"speedup measurement)", flush=True)
+          f"{seq_ms:.2f} ms (first pass {seq_cold_ms:.2f}), pipeline "
+          f"{[round(t, 2) for t in numbers['pipeline_ms']]} ms (first pass "
+          f"{[round(t, 2) for t in numbers['pipeline_cold_ms']]}) "
+          f"({mr_where(plan)})", flush=True)
     return numbers
 
 
@@ -3416,6 +3437,10 @@ def multirank_phase(torch, np, dev):
     from repro_torch.kernels import _build
     _build.reset_launches()
     cfgs, plan = mr_configs(), mr_plan()
+    plan["cards"] = torch.cuda.device_count() if dev.type == "cuda" else 0
+    # NCCL where each rank has a card of its own; else every rank shares
+    # the one card over gloo (NCCL refuses two ranks on one GPU)
+    plan["backend"] = "nccl" if plan["cards"] >= MR_RANKS else "gloo"
     walls = {}
     t0 = time.perf_counter()
     want = {"gqa": mr_default_decode(torch, np, dev, cfgs[0], plan),
@@ -3424,11 +3449,12 @@ def multirank_phase(torch, np, dev):
     t0 = time.perf_counter()
     # by module name, so the ranks import this file as ``chip_smoke``
     body = importlib.import_module("chip_smoke").multirank_rank
-    ranks = spawn_ranks(body, MR_RANKS, timeout_s=MR_TIMEOUT_S,
-                        args=(dev.type, cfgs, plan))
+    ranks = spawn_ranks(body, MR_RANKS, backend=plan["backend"],
+                        timeout_s=MR_TIMEOUT_S, args=(dev.type, cfgs, plan))
     walls["ranks"] = time.perf_counter() - t0
     numbers = {
-        "ranks": MR_RANKS, "backend": "gloo",
+        "ranks": MR_RANKS, "backend": plan["backend"],
+        "cards": plan["cards"],
         "rank_ready_s": [r["ready_s"] for r in ranks],
         "rank_wall_s": [r["wall_s"] for r in ranks],
         # process start, imports, the card's context and the group, and
@@ -3489,6 +3515,15 @@ def main():
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), python "
           f"{sys.version.split()[0]}", flush=True)
     dev = torch.device("cuda", 0)
+    if sys.argv[1:] == ["--phase", "9"]:
+        t0 = time.perf_counter()
+        numbers = multirank_phase(torch, np, dev)
+        phase_wall("9", t0)
+        print(json.dumps({"multirank": numbers, "card": card}), flush=True)
+        return
+    if sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]}: run with none, or with "
+             f"--phase 9")
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     cfg = dataclasses.replace(get_config(ARCH), n_layers=N_LAYERS)
