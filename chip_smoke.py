@@ -229,7 +229,34 @@ failure exits non-zero:
    processes sharing one card, not a speedup measurement.  On a machine
    with a card for each rank the ranks take a card each over NCCL;
    ``python3 chip_smoke.py --phase 9`` runs phase 9 alone.
-10. One JSON line with each kernel's launches on its path, error, times
+10. The peer-HBM (P) tier and the dry run, from phase 3's store and
+    seeded weights (the store stays on disk until this phase): serving 4
+    requests of 8 greedy tokens at qwen2-moe-a2.7b's full width, depth 2,
+    ``device_cache=True, ffn_impl="ragged"``, pools F2/C2/S2/E2:
+
+   * (a) ``mesh_devices=1``, the baseline;
+   * (b) ``mesh_devices=4``: four peer rows, a card each where the
+     machine has four cards (``can_device_access_peer`` printed), else
+     all four on the one card (``peer_devices=["cuda:0"] * 4``: each fetch
+     a device-local copy, no link); the P pool holds every expert.
+     Logits bit-identical to (a) at every step, experts link-served, the
+     ledger's ``collective-permute`` bytes equal to fetches x an expert's
+     bytes; then every expert made resident and 3 hit steps: h2d bytes
+     0, logits bit-identical to (a)'s, experts link-served; every PeerRef
+     valid, and one expert a row fetched back equal to the store's bits;
+   * (c) (b) planned: ``mem_budget`` of 24 experts' bf16 bytes,
+     ``peer_budget`` of 8 a row, a forced re-plan before step 4: logits
+     bit-identical to (a), each layer's per-row grants summing to its
+     plan's P size, each row's resident bytes within its budget;
+   * (d) ``python -m repro_torch.launch.dryrun --arch qwen2-moe-a2.7b
+     --shape decode_32k`` as a subprocess: exit 0 and its record.
+
+   TPOT, blocked time, hit rates by pool, served and fallbacks, ledger
+   bytes and ops, put bytes and the link model's bandwidth, latency and
+   fetch wall time print for each path.  The mesh-4 path must launch the
+   splice-admit and the ragged GEMM.  ``python3 chip_smoke.py --phase
+   10`` runs phase 10 alone, from a store of its own.
+11. One JSON line with each kernel's launches on its path, error, times
    and bound; then the result line.  Each phase's wall time is printed as
    it ends.
 """
@@ -297,6 +324,7 @@ PATH_KERNELS = {
     "jamba-ragged": ("splice", "splice_admit", "slab_gemm"),
     "jamba-continuous": ("splice", "splice_admit", "slab_gemm"),
     "switch-ragged": ("splice", "splice_admit", "slab_gemm"),
+    "peer": ("splice_admit", "slab_gemm"),
 }
 # phase 5: deepseekv2-lite, every width as published, depth 27 -> 3 (one
 # dense layer, two MoE layers, so the cross-layer prefetch stays real)
@@ -401,6 +429,13 @@ MR_FILL_STD = 0.5            # the seeded cache's entries
 MR_REL = 1e-5
 MR_TIMEOUT_S = 600
 MR_PROBE_REPS = 20
+# phase 10: the peer-HBM tier on the main path's store and weights
+PEER_MESH = 4                # peer rows: a card each, or all on one card
+PEER_POOLS = {"F": 2, "C": 2, "S": 2, "E": 2}   # P: every expert (default)
+PEER_BUDGET_EXPERTS = 8      # planned path: each row's budget, in experts
+PEER_WARM_STEPS = 4          # 1 + 3 hit steps with every expert resident
+DRYRUN_SHAPE = "decode_32k"
+DRYRUN_TIMEOUT_S = 120
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12     # dense bf16 tensor-core peak
 # ragged GEMM vs its f32 plain version: both sum in f32 but in another
@@ -3298,16 +3333,11 @@ def mr_default_decode(torch, np, dev, cfg, plan):
 
 
 def mr_reckon_decode(cfg, plan) -> dict:
-    """A seq-sharded rank's collectives over the steps: the max and the
-    normaliser [B, H] and the numerator [B, H, D] (MLA: [B, H, C]), f32,
-    per attention layer and step."""
-    from repro_torch.models.model import mixer_kind
-    n_attn = sum(mixer_kind(cfg, i) == "attn" for i in range(cfg.n_layers))
-    width = cfg.kv_lora_rank if cfg.attn == "mla" else cfg.head_dim
-    per = (2 + width) * plan["batch"] * cfg.n_heads * 4
-    n = n_attn * len(plan["positions"])
-    return {"collective_ops": {"all-reduce": 3 * n},
-            "collective_bytes": {"all-reduce": per * n}}
+    """A seq-sharded rank's collectives over the steps (the reckoning the
+    dry run shares: ``decode_attention.reckon_seqshard_decode``)."""
+    from repro_torch.models.decode_attention import reckon_seqshard_decode
+    return reckon_seqshard_decode(cfg, plan["batch"],
+                                  len(plan["positions"]))
 
 
 def mr_check_decode(np, what, cfg, plan, want, ranks) -> dict:
@@ -3378,6 +3408,7 @@ def mr_check_decode(np, what, cfg, plan, want, ranks) -> dict:
 def mr_check_pipe(torch, np, dev, cfg, plan, ranks) -> dict:
     """Phase 9 (c): the stage ranks' results against the parent's
     sequential pass over the same stack and micro-batches."""
+    from repro_torch.distributed.pipeline import reckon_pipeline
     from repro_torch.models.model import _superblock
     params, x = mr_pipe_inputs(torch, dev, cfg, plan)
     B, S = plan["mb"]
@@ -3396,12 +3427,7 @@ def mr_check_pipe(torch, np, dev, cfg, plan, ranks) -> dict:
           "pass is not finite")
     del params, x, seq
     torch.cuda.empty_cache()
-    act = B * S * cfg.d_model * 2
-    ticks = micro + n_st - 1
-    reckoned = {"collective_ops": {"collective-permute": ticks,
-                                   "all-reduce": 1},
-                "collective_bytes": {"collective-permute": ticks * act,
-                                     "all-reduce": micro * act}}
+    reckoned = reckon_pipeline(cfg, n_st, micro, (B, S))
     for r in range(n_st):
         res = ranks[r]["pipe"]
         n_diff = int((res["bits"] != want).sum())
@@ -3484,6 +3510,249 @@ def multirank_phase(torch, np, dev):
     return numbers
 
 
+# ----------------------------------------------------------------------------
+# phase 10: the peer-HBM (P) tier and the dry run
+# ----------------------------------------------------------------------------
+def peer_rows(torch, dev):
+    """The peer rows' devices and how they are joined: a card each where
+    there are PEER_MESH cards, else PEER_MESH rows on the one card."""
+    n = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if n >= PEER_MESH:
+        rows = [torch.device("cuda", i) for i in range(PEER_MESH)]
+        access = {f"0->{i}": torch.cuda.can_device_access_peer(0, i)
+                  for i in range(1, PEER_MESH)}
+        return rows, (f"{PEER_MESH} rows a card each; "
+                      f"can_device_access_peer {access}")
+    return [dev] * PEER_MESH, (f"{PEER_MESH} rows on one {dev.type} device: "
+                               f"each fetch is a device-local copy, no link")
+
+
+def peer_numbers(run, zs, n_moe: int) -> dict:
+    """A peer path's numbers: path_numbers, the hits by pool, the peer
+    telemetry (ledger, link model, puts) and the row occupancy."""
+    out = path_numbers(run, n_moe)
+    ps = zs.peer_summary()
+    out["hits"] = dict(run["cache"]["hits"])
+    if ps["enabled"]:
+        out.update(served=ps["served"], fallbacks=ps["fallbacks"],
+                   collective_bytes=ps["collective_bytes"],
+                   collective_ops=ps["collective_ops"],
+                   peer_put_bytes=ps["peer_put_bytes"],
+                   link_failures=ps["link_failures"], link=ps["link"],
+                   rows_resident=[s["resident"]
+                                  for s in ps["slabs"].values()])
+    return out
+
+
+def check_peer_refs(np, zs, store_dir, what: str) -> int:
+    """Every PeerRef in a P-pool payload is valid and names its expert's
+    slot; one expert a row fetched back equals the store's bits (the
+    fetches are charged to the ledger, so this runs after the numbers
+    were read).  Returns the experts checked against the store."""
+    from repro_torch.core.bitfield import to_bits
+    from repro_torch.core.slab import PeerRef
+    from repro_torch.core.store import ExpertStore
+    eng = zs.engine
+    store = ExpertStore(store_dir)
+    n_refs = checked = 0
+    try:
+        for l, slab in eng.peer.slabs.items():
+            if slab is None:
+                continue
+            for e, ent in eng.caches[l].pools["P"].items():
+                refs = [v for v in (ent.payload.full.values()
+                                    if ent.payload is not None else ())
+                        if isinstance(v, PeerRef)]
+                for r in refs:
+                    check(r.valid and slab.slot_of.get(e) == (r.dev, r.slot),
+                          f"{what}: layer {l} expert {e}: a stale or "
+                          f"misplaced PeerRef {r.dev}/{r.slot}")
+                n_refs += len(refs)
+            seen = set()
+            for e, (row, _) in sorted(slab.slot_of.items()):
+                if row in seen:
+                    continue
+                seen.add(row)
+                got = slab.fetch(e)
+                want = store.load_group((l, e))
+                for name, arr in want.items():
+                    check(np.array_equal(to_bits(got[name]), arr),
+                          f"{what}: layer {l} expert {e} {name}: the peer "
+                          f"row's bytes differ from the store's")
+                checked += 1
+    finally:
+        store.close()
+    check(n_refs > 0 and checked > 0,
+          f"{what}: {n_refs} PeerRefs, {checked} experts fetched back")
+    return checked
+
+
+def peer_phase(torch, np, dev, cfg, store_dir):
+    """Phase 10: (a) mesh 1, (b) mesh 4 with a warm-hit run, (c) mesh 4
+    planned, all from phase 3's store and weights; (d) the dry run as a
+    subprocess.  Returns the peer path's launches and the numbers."""
+    from repro_torch.models import init_params
+    from repro_torch.serving.zipserve import ZipServer
+    params = init_params(cfg, seed=SEED, device=dev)
+    rng = np.random.default_rng(SEED)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (BATCH, 1))
+                              ).to(dev)
+    n_moe = len(cfg_moe_layers(cfg))
+    rows, where = peer_rows(torch, dev)
+    print(f"peer: {where}", flush=True)
+    numbers = {"rows": [str(r) for r in rows], "where": where}
+
+    def server(**kw):
+        return ZipServer(params, cfg, store_dir, L=6, prefetch=True,
+                         device=dev, device_cache=True, ffn_impl="ragged",
+                         **kw)
+
+    # -- (a) the baseline: one device ---------------------------------------
+    zs = server(pool_sizes=PEER_POOLS)
+    try:
+        base = serve(torch, zs, prompt, NEW_TOKENS, NEW_TOKENS + 1)
+        check(zs.engine.peer is None and zs.peer_summary() == {
+            "enabled": False}, "peer (a): a one-device server has a peer "
+            "context")
+        numbers["baseline"] = peer_numbers(base, zs, n_moe)
+    finally:
+        zs.close()
+    print(f"peer (a) mesh 1: {json.dumps(numbers['baseline'])}", flush=True)
+
+    # -- (b) four peer rows; then every expert resident and 3 hit steps ----
+    zs = server(pool_sizes=PEER_POOLS, mesh_devices=PEER_MESH,
+                peer_devices=rows)
+    try:
+        mesh = serve(torch, zs, prompt, NEW_TOKENS, NEW_TOKENS + 1)
+        b = numbers["mesh"] = peer_numbers(mesh, zs, n_moe)
+        nbytes = {s.expert_nbytes() for s in zs.engine.peer.slabs.values()
+                  if s is not None}
+        check(same_logits(torch, base, mesh),
+              "peer (b): mesh-4 logits differ from mesh 1's")
+        check(b["served"] > 0, f"peer (b): no expert link-served: {b}")
+        n_fetch = b["collective_ops"].get("collective-permute", 0)
+        check(len(nbytes) == 1 and b["collective_bytes"] == {
+            "collective-permute": n_fetch * min(nbytes)},
+            f"peer (b): ledger {b['collective_bytes']} != {n_fetch} "
+            f"fetches x {nbytes} B")
+        served0 = zs.peer_summary()["served"]
+        warm = warm_hit_run(torch, zs, cfg, prompt, PEER_WARM_STEPS)
+        ps = zs.peer_summary()
+        w = numbers["mesh_warm"] = {
+            k: v for k, v in warm.items() if k not in ("logits", "launches")}
+        w.update(served=ps["served"] - served0, link=ps["link"],
+                 hits=zs.cache_summary()["hits"])
+        check(all(torch.equal(x.view(torch.int16), y.view(torch.int16))
+                  for x, y in zip(warm["logits"], base["logits"])),
+              "peer (b): warm-hit logits differ from mesh 1's")
+        check(w["h2d_bytes"] == 0, f"peer (b): warm hit steps moved "
+              f"{w['h2d_bytes']} h2d bytes")
+        check(w["served"] > 0, "peer (b): the warm steps link-served no "
+              "expert")
+        numbers["mesh"]["checked_experts"] = check_peer_refs(
+            np, zs, store_dir, "peer (b)")
+    finally:
+        zs.close()
+    print(f"peer (b) mesh {PEER_MESH}: logits bit-identical to mesh 1; "
+          f"{json.dumps(b)}", flush=True)
+    print(f"peer (b) warm: {PEER_WARM_STEPS - 1} hit steps, h2d 0 B, "
+          f"logits bit-identical; {json.dumps(w)}", flush=True)
+
+    # -- (c) planned: a host budget and a per-row peer budget ---------------
+    f_bytes = min(nbytes)
+    budget, peer_budget = PLAN_BUDGET_EXPERTS * f_bytes, \
+        PEER_BUDGET_EXPERTS * f_bytes
+    row_peak = [0] * PEER_MESH
+
+    def watch_rows(zs, i):
+        slabs = [s for s in zs.engine.peer.slabs.values() if s is not None]
+        for r in range(PEER_MESH):
+            row_peak[r] = max(row_peak[r],
+                              sum(s.resident_bytes(r) for s in slabs))
+        if i == PLAN_FORCED_AT:
+            zs.engine.replan(reason="forced")
+
+    zs = server(mem_budget=budget, peer_budget=peer_budget,
+                replan_every=PLAN_REPLAN_EVERY, mesh_devices=PEER_MESH,
+                peer_devices=rows)
+    try:
+        planned = serve(torch, zs, prompt, NEW_TOKENS, NEW_TOKENS + 1,
+                        before_step=watch_rows)
+        watch_rows(zs, -1)
+        c = numbers["planned"] = peer_numbers(planned, zs, n_moe)
+        pls = zs.plan_summary()
+        eng = zs.engine
+        for l in zs._moe_layers:
+            caps = eng.peer.dev_caps.get(l)
+            size = eng.planner.plans[l].sizes.get("P", 0)
+            check(caps is not None and sum(caps) == size,
+                  f"peer (c): layer {l} grants {caps} != plan P {size}")
+        c.update(dev_caps={l: eng.peer.dev_caps[l] for l in zs._moe_layers},
+                 plan_sizes={l: eng.planner.plans[l].sizes
+                             for l in zs._moe_layers},
+                 n_plans=pls["n_plans"], n_replans=pls["n_replans"],
+                 row_peak_bytes=row_peak, peer_budget_bytes=peer_budget,
+                 budget_bytes=budget)
+    finally:
+        zs.close()
+    check(same_logits(torch, base, planned),
+          "peer (c): planned mesh-4 logits differ from mesh 1's")
+    check(pls["n_replans"] >= 1, f"peer (c): {pls['n_replans']} re-plans")
+    check(max(row_peak) <= peer_budget, f"peer (c): a row held "
+          f"{max(row_peak)} B > its budget {peer_budget} B: {row_peak}")
+    print(f"peer (c) planned: logits bit-identical to mesh 1; "
+          f"{json.dumps(c)}", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (d) the dry run: a shape pass on the meta device -------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dryrun_",
+                                     dir=ROOT / "build") as out:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             ARCH, "--shape", DRYRUN_SHAPE, "--out-dir", out], env=env,
+            capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+        check(proc.returncode == 0, f"peer (d): the dry run exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        rec = json.loads((Path(out) / f"{ARCH}__{DRYRUN_SHAPE}__single.json"
+                          ).read_text())
+    check(rec["status"] == "ok" and rec["flops_per_device"] > 0,
+          f"peer (d): dry-run record {rec}")
+    numbers["dryrun"] = {k: rec[k] for k in (
+        "flops_per_device", "argument_bytes_per_device", "roofline",
+        "useful_flop_ratio", "collective_note")}
+    numbers["dryrun"]["wall_s"] = time.perf_counter() - t0
+    print(f"peer (d) dry run ({ARCH} x {DRYRUN_SHAPE} x single): "
+          f"{json.dumps(numbers['dryrun'])}", flush=True)
+    return mesh["launches"], numbers
+
+
+def peer_alone(torch, np, dev, cfg, card):
+    """``--phase 10``: phase 10 by itself, from a store of its own (phase
+    3's, as phase 3 builds it), with the peer path's launch check."""
+    from repro_torch.core.store import build_store
+    from repro_torch.models import init_params
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smoke_store_",
+                                     dir=ROOT / "build") as tmp:
+        params = init_params(cfg, seed=SEED, device=dev)
+        build_store(params, cfg, tmp, device=dev).close()
+        del params
+        torch.cuda.empty_cache()
+        print(f"store: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        launches, numbers = peer_phase(torch, np, dev, cfg, tmp)
+    numbers["wall_s"] = phase_wall("10", t0)
+    for name in PATH_KERNELS["peer"]:
+        check(launches[name] > 0, f"kernel {name} was not launched on the "
+              f"peer path: {launches}")
+    numbers["launches"] = launches
+    print(json.dumps({"peer": numbers, "card": card}), flush=True)
+
+
 def cfg_moe_layers(cfg):
     return [i for i in range(cfg.n_layers) if cfg.moe_layer(i)]
 
@@ -3521,9 +3790,9 @@ def main():
         phase_wall("9", t0)
         print(json.dumps({"multirank": numbers, "card": card}), flush=True)
         return
-    if sys.argv[1:]:
+    if sys.argv[1:] not in ([], ["--phase", "10"]):
         fail(f"unknown arguments {sys.argv[1:]}: run with none, or with "
-             f"--phase 9")
+             f"--phase 9 or --phase 10")
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     cfg = dataclasses.replace(get_config(ARCH), n_layers=N_LAYERS)
@@ -3538,6 +3807,10 @@ def main():
     print(f"kernels: built={_build.BUILD_INFO['built']} in "
           f"{time.perf_counter() - t0:.1f} s -> {_build.BUILD_INFO['path']}",
           flush=True)
+    (ROOT / "build").mkdir(exist_ok=True)
+    if sys.argv[1:] == ["--phase", "10"]:
+        peer_alone(torch, np, dev, cfg, card)
+        return
 
     walls = {}
     t0 = time.perf_counter()
@@ -3552,40 +3825,47 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     walls["2"] = phase_wall("2", t0)
-    (ROOT / "build").mkdir(exist_ok=True)
     t0 = time.perf_counter()
+    # phase 3's store stays on disk until phase 10 has served from it
     with tempfile.TemporaryDirectory(prefix="smoke_store_",
-                                     dir=ROOT / "build") as tmp:
-        launches, e2e = main_path(torch, np, dev, cfg, tmp)
-    walls["3-4"] = phase_wall("3-4", t0)
-    t0 = time.perf_counter()
-    mla_launches, e2e["mla"] = mla_phase(torch, np, dev)
-    launches.update(mla_launches)
-    walls["5"] = phase_wall("5", t0)
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="smoke_store_jamba_",
-                                     dir=ROOT / "build") as tmp:
-        ssm_launches, e2e["ssm"] = ssm_phase(torch, np, dev, tmp)
-    launches.update(ssm_launches)
-    walls["6"] = phase_wall("6", t0)
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="smoke_store_switch_",
-                                     dir=ROOT / "build") as tmp:
-        encdec_launches, e2e["encdec"] = encdec_phase(torch, np, dev, tmp)
-    launches.update(encdec_launches)
-    walls["7"] = phase_wall("7", t0)
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    e2e["train"] = train_phase(torch, np, dev)
-    walls["8"] = phase_wall("8", t0)
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    e2e["multirank"] = multirank_phase(torch, np, dev)
-    walls["9"] = phase_wall("9", t0)
+                                     dir=ROOT / "build") as main_store:
+        launches, e2e = main_path(torch, np, dev, cfg, main_store)
+        walls["3-4"] = phase_wall("3-4", t0)
+        t0 = time.perf_counter()
+        mla_launches, e2e["mla"] = mla_phase(torch, np, dev)
+        launches.update(mla_launches)
+        walls["5"] = phase_wall("5", t0)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="smoke_store_jamba_",
+                                         dir=ROOT / "build") as tmp:
+            ssm_launches, e2e["ssm"] = ssm_phase(torch, np, dev, tmp)
+        launches.update(ssm_launches)
+        walls["6"] = phase_wall("6", t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="smoke_store_switch_",
+                                         dir=ROOT / "build") as tmp:
+            encdec_launches, e2e["encdec"] = encdec_phase(torch, np, dev,
+                                                          tmp)
+        launches.update(encdec_launches)
+        walls["7"] = phase_wall("7", t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        e2e["train"] = train_phase(torch, np, dev)
+        walls["8"] = phase_wall("8", t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        e2e["multirank"] = multirank_phase(torch, np, dev)
+        walls["9"] = phase_wall("9", t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launches["peer"], e2e["peer"] = peer_phase(torch, np, dev, cfg,
+                                                   main_store)
+        walls["10"] = phase_wall("10", t0)
     e2e["phase_wall_s"] = walls
     # every kernel runs on some path, and every path runs its kernels; a
     # kernel's launches are its count on the first path that runs it

@@ -7,14 +7,17 @@ the MLA MoE family (deepseekv2-lite, deepseek-v2-236b), the SSM family
 (mamba2-370m), the hybrid family (jamba-v0.1-52b), the encoder-decoders
 with learned positions (switch-large-128, the paper's third evaluation
 model, and whisper-small) and M-RoPE over input embeddings (qwen2-vl-2b).
+``ASSIGNED`` names the ten the dry run's cells cover, each against every
+entry of ``SHAPES`` (``all_cells``; ``shape_applicable`` marks the skips).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import List
+from typing import List, Tuple
 
-from repro_torch.configs.base import ModelConfig, reduced
+from repro_torch.configs.base import (SHAPE_BY_NAME, SHAPES, ModelConfig,
+                                     reduced)
 
 # arch-id -> module name
 _ARCH_MODULES = {
@@ -34,6 +37,12 @@ _ARCH_MODULES = {
     "switch-large-128": "switch_large_128",
 }
 
+ASSIGNED: List[str] = [
+    "granite-8b", "deepseek-coder-33b", "starcoder2-3b", "qwen3-14b",
+    "qwen2-moe-a2.7b", "deepseek-v2-236b", "mamba2-370m", "jamba-v0.1-52b",
+    "whisper-small", "qwen2-vl-2b",
+]
+
 PAPER_MODELS: List[str] = ["deepseekv2-lite", "qwen1.5-moe-a2.7b",
                            "switch-large-128"]
 
@@ -50,3 +59,20 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str, **overrides) -> ModelConfig:
     return reduced(get_config(arch), **overrides)
+
+
+def shape_applicable(cfg: ModelConfig, shape_name: str) -> Tuple[bool, str]:
+    """Is (arch, shape) a runnable cell?  Returns (ok, reason-if-skip)."""
+    SHAPE_BY_NAME[shape_name]                 # KeyError on an unknown shape
+    if shape_name == "long_500k":
+        if cfg.family not in ("ssm", "hybrid"):
+            return False, ("pure full-attention arch: 512k dense KV decode "
+                           "skipped per assignment (sub-quadratic archs "
+                           "only); see DESIGN.md")
+    return True, ""
+
+
+def all_cells(archs=None) -> List[Tuple[str, str]]:
+    """All (arch, shape) cells, including ones marked skip."""
+    archs = archs or ASSIGNED
+    return [(a, s.name) for a in archs for s in SHAPES]

@@ -81,7 +81,16 @@ The copy and the old buffer's release both run on the decode thread's
 stream, so the allocator cannot hand the old memory out before the copy
 has read it.
 
-Left out of the port so far: the peer-HBM (P) tier.
+The peer-HBM (P) tier (``peer_devices``, two or more devices) puts
+F ≺ P ≺ C ≺ S ≺ E in place of the paper's stack: P residents live in a
+:class:`~repro_torch.core.slab.PeerSlabMesh` row on their EP owner's
+device, and a demand or speculative hit on one is priced against local
+reconstruction by the :class:`~repro_torch.core.profiles.LinkProfiler`
+and, when the link wins, copied to the compute device (``peer_devices[0]``)
+at submit time, on the decode thread, before the host pipeline sees the
+expert.  The planner budgets each device's row separately
+(``configure_planner(peer_budget=)``).  A one-device configuration has no
+peer context and runs the default stack exactly.
 """
 from __future__ import annotations
 
@@ -98,12 +107,14 @@ import torch
 
 from repro_torch.core import bitfield, checkz
 from repro_torch.core.cache import HierarchicalCache, LiveFlatCache, pool_summary
-from repro_torch.core.faults import FetchError, FetchTimeout, WorkerKilled
+from repro_torch.core.faults import (FetchError, FetchTimeout, PeerLinkError,
+                                     WorkerKilled)
 from repro_torch.core.scheduler import build_blocks
-from repro_torch.core.slab import DevicePlanes, DeviceSlabCache, SlotRef
+from repro_torch.core.slab import (DevicePlanes, DeviceSlabCache, PeerRef,
+                                   PeerSlabMesh, SlotRef)
 from repro_torch.core.states import CState, Task
 from repro_torch.core.store import ExpertStore
-from repro_torch.core.tiers import DEFAULT_STACK
+from repro_torch.core.tiers import DEFAULT_STACK, PEER_STACK
 from repro_torch.core.workload import FreqTracker
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import (host_u8, recover_bf16_device,
@@ -124,6 +135,29 @@ class FetchStats:
     io_bytes: int = 0
     dec_ops: int = 0
     hits: Dict[str, int] = field(default_factory=dict)
+
+
+class _PeerContext:
+    """Shared state of the peer-HBM (P) tier: the mesh's devices ('ep'
+    axis; device 0 computes), the per-layer slab rows, the collective
+    traffic ledger, and the profiled link-cost model.  Built only when the
+    engine is given two or more devices — a 1-device configuration carries
+    no peer context at all and runs the exact pre-peer stack."""
+
+    def __init__(self, devices):
+        from repro_torch.core.profiles import LinkProfiler
+        from repro_torch.distributed.collectives import CollectiveLedger
+        self.devices = [torch.device(d) for d in devices]
+        self.n_dev = len(self.devices)
+        self.ledger = CollectiveLedger()
+        self.link = LinkProfiler()
+        # single-writer: decode thread (lazy slab builds + plan application)
+        self.slabs: Dict[int, Optional[PeerSlabMesh]] = {}
+        # single-writer: decode thread (per-device planned slot grants)
+        self.dev_caps: Dict[int, List[int]] = {}
+        # single-writer: decode thread (submit-time serve/fallback tallies)
+        self.served = 0        # P-resident experts materialised via the link
+        self.fallbacks = 0     # P-resident but priced/failed to local decode
 
 
 class _FetchJob:
@@ -338,7 +372,7 @@ class ZipMoEEngine:
                  recover_fn: Optional[Callable] = None, delta: int = 1,
                  cache_mode: str = "hier", flat_capacity: Optional[int] = None,
                  flat_policy: str = "lru", freq_decay: float = 1.0,
-                 device_cache: bool = False, device=None,
+                 device_cache: bool = False, device=None, peer_devices=None,
                  fetch_deadline_s: Optional[float] = 120.0,
                  worker_stall_s: Optional[float] = None,
                  watchdog_interval_s: float = 0.05):
@@ -356,7 +390,21 @@ class ZipMoEEngine:
         # the caller names another); host mode needs no device
         self.device = resolve_device(device) \
             if device_cache or device is not None else None
-        self.stack = DEFAULT_STACK
+        # peer-HBM tier (P): expert slab rows on the devices of a mesh
+        # ('ep' axis).  A 1-device mesh is pointless as a peer ring, so it
+        # degenerates to no peer context — the stack, caches, and
+        # telemetry are then EXACTLY the default configuration.
+        self.peer: Optional[_PeerContext] = None
+        if peer_devices is not None and len(peer_devices) > 1:
+            assert cache_mode == "hier", \
+                "the peer tier is a pool of the hierarchical stack"
+            self.peer = _PeerContext(peer_devices)
+            if self.device is not None and \
+                    self.peer.devices[0] != self.device:
+                raise ValueError(f"peer_devices[0] is "
+                                 f"{self.peer.devices[0]}, but the engine "
+                                 f"computes on {self.device}")
+        self.stack = PEER_STACK if self.peer is not None else DEFAULT_STACK
         # h2d/splice telemetry (device mode uploads the two u8 planes once
         # per reconstruction; the serving layer also charges host-array
         # GEMM staging here so "zero weight bytes moved" is provable).
@@ -384,6 +432,13 @@ class ZipMoEEngine:
                 lambda e, sm, shape: bitfield.reconstruct_np(
                     e, np.frombuffer(sm, np.uint8), shape))
         sizes = pool_sizes or {"F": 4, "C": 4, "S": 8, "E": 8}
+        if self.peer is not None and "P" not in sizes:
+            # default the peer pool to the whole expert set: the mesh's
+            # aggregate memory can hold every shard, and the per-device
+            # planner (plan_peer_shards) narrows the logical grants under
+            # a budget
+            sizes = dict(sizes)
+            sizes["P"] = self.n_experts
         self.caches: Dict[int, object] = {}
         self.trackers: Dict[int, FreqTracker] = {}
         # windowed cache telemetry (§3.4): note_step() closes a per-N-steps
@@ -458,6 +513,7 @@ class ZipMoEEngine:
         self.deadline_hits = 0                     # guarded-by: _cv
         self.spec_drops = 0                        # guarded-by: _cv
         self.fallback_loads = 0                    # guarded-by: _cv
+        self.peer_link_failures = 0                # guarded-by: _cv
         self.failed_experts = 0                    # guarded-by: _cv
         # per-worker-slot generation counters: the watchdog bumps a slot's
         # gen when replacing its thread, and an abandoned thread exits at
@@ -510,15 +566,20 @@ class ZipMoEEngine:
             close()
 
     def release(self):
-        """After :meth:`shutdown`: free the device slabs now (every SlotRef
-        into them turns stale) and drop the references back to the engine
-        that its caches' demotion hook and its recover hook hold, so the
-        engine and the payloads in its pools are freed by reference
-        counting, without waiting for the cycle collector.  Counters and
-        telemetry stay readable; the engine fetches nothing afterwards."""
+        """After :meth:`shutdown`: free the device slabs and peer rows now
+        (every SlotRef and PeerRef into them turns stale) and drop the
+        references back to the engine that its caches' demotion hook and
+        its recover hook hold, so the engine and the payloads in its pools
+        are freed by reference counting, without waiting for the cycle
+        collector.  Counters and telemetry stay readable; the engine
+        fetches nothing afterwards."""
         for slab in self._slabs.values():
             if slab is not None:
                 slab.retire()
+        if self.peer is not None:
+            for slab in self.peer.slabs.values():
+                if slab is not None:
+                    slab.retire()
         for cache in self.caches.values():
             cache.demote_payload = None
         self.recover = None
@@ -601,9 +662,7 @@ class ZipMoEEngine:
 
     def plan_consts(self, layer: int):
         """The layer's :class:`~repro_torch.core.planner.PlanConsts`, from
-        the per-layer profiled u/c/ρ and the layer's real chunk layout
-        (``peer=0``: the port has no peer tier, and the term vanishes
-        exactly)."""
+        the per-layer profiled u/c/ρ and the layer's real chunk layout."""
         from repro_torch.core.planner import PlanConsts
         expert = min((e for (l, e) in self.store.groups if l == layer),
                      default=None)
@@ -612,8 +671,12 @@ class ZipMoEEngine:
         g = self.store.groups[(layer, expert)]
         K = max(1, len(g.tensors[0].e_sizes))
         u, c, rho = self._layer_costs(layer)
+        # profiled per-expert peer-fetch cost: the third Algorithm-3
+        # bottleneck (0 without a mesh — the term vanishes exactly)
+        peer = self.peer.link.p_time(int(g.full_bytes)) \
+            if self.peer is not None else 0.0
         return PlanConsts(u=u, v=rho * u / K, c=c, L=self.L, K=K,
-                          n_tensors=len(g.tensors), peer=0.0)
+                          n_tensors=len(g.tensors), peer=peer)
 
     # ------------------------------------------------------------------
     # device-resident slabs (device_cache mode)
@@ -673,8 +736,8 @@ class ZipMoEEngine:
     def _splice_planes(self, dp: DevicePlanes):
         """Materialise a DevicePlanes placeholder into a standalone bf16
         device tensor — the fused-admit fallback whenever no slab slot can
-        take the planes (slab overflow, flat mode).  Charged to the engine
-        splice counters like any other device splice."""
+        take the planes (slab overflow, peer demotion, flat mode).  Charged
+        to the engine splice counters like any other device splice."""
         t0 = time.perf_counter()
         out = splice_planes_device(dp.exp, dp.sm, dp.shape)
         self._sync()     # host-sync-ok: timed splice, off hot loop
@@ -765,17 +828,201 @@ class ZipMoEEngine:
             self.h2d_bytes += arr.nbytes
         return bitfield.from_bits(arr).to(self.device)
 
+    # ------------------------------------------------------------------
+    # peer-HBM tier (P): slab rows on the mesh's devices + demand fetches
+    # ------------------------------------------------------------------
+    def _peer_owner(self, expert: int) -> int:
+        """EP owner device of `expert` (contiguous blocks, matching the
+        store/param sharding rule; balanced fallback off-divisibility)."""
+        from repro_torch.distributed.sharding import ep_ok, ep_owner
+        n, d = self.n_experts, self.peer.n_dev
+        if ep_ok(n, d):
+            return ep_owner(expert, n, d)
+        return min(d - 1, int(expert) * d // max(1, n))
+
+    def _peer_slab(self, layer: int) -> Optional[PeerSlabMesh]:
+        """The layer's peer slab mesh (lazily built).  Physical row size is
+        the device's whole expert shard — the mesh's aggregate memory is
+        the P tier's backing store — while the *logical* per-device slot
+        grants (``set_dev_caps``) carry the planned budget."""
+        if self.peer is None:
+            return None
+        slabs = self.peer.slabs
+        if layer not in slabs:
+            cap = self.caches[layer].cap.get("P", 0)
+            expert = min((e for (l, e) in self.store.groups if l == layer),
+                         default=None)
+            if cap <= 0 or expert is None:
+                slabs[layer] = None
+            else:
+                shapes = {t.name: tuple(t.shape) for t in
+                          self.store.groups[(layer, expert)].tensors}
+                blk = -(-self.n_experts // self.peer.n_dev)
+                slab = PeerSlabMesh(layer, shapes, blk, self.peer.devices,
+                                    ledger=self.peer.ledger,
+                                    link=self.peer.link)
+                slab.faults = self.faults
+                slab.set_dev_caps(self.peer.dev_caps.get(layer)
+                                  or self._even_dev_caps(cap))
+                slabs[layer] = slab
+        return slabs[layer]
+
+    def _even_dev_caps(self, cap: int) -> List[int]:
+        """Unplanned default: split the P pool's expert-count capacity
+        evenly over the mesh (low device ids take the remainder)."""
+        d = self.peer.n_dev
+        base, rem = divmod(max(0, int(cap)), d)
+        return [min(base + (1 if i < rem else 0),
+                    -(-self.n_experts // d)) for i in range(d)]
+
+    def _peer_fetch(self, layer: int, expert: int) -> Optional["ExpertPayload"]:
+        """Fetch a peer-slab resident to the compute device and wrap it as
+        an F-like payload (full device tensors).  A failed link (injected
+        or real) returns None — the caller falls back to the local store
+        path priced by the LinkProfiler."""
+        slab = self._peer_slab(layer)
+        if slab is None or expert not in slab:
+            return None
+        try:
+            got = slab.fetch(expert)
+        except PeerLinkError:
+            with self._cv:
+                self.peer_link_failures += 1
+            return None
+        if got is None:
+            return None
+        g = self.store.groups[(layer, expert)]
+        return ExpertPayload(full={tidx: got[tm.name]
+                                   for tidx, tm in enumerate(g.tensors)})
+
+    def _serve_peer_residents(self, job: "_FetchJob"):
+        """Materialise P-resident experts at submit time (decode thread).
+
+        A demand/speculative expert whose bytes live in a peer device's
+        slab row is priced link-fetch vs local reconstruction from the
+        profiled link model; when the link wins, the fetch runs
+        synchronously here and the job seeds the fetched tensors exactly
+        like an F hit — the host pipeline (I/O thread, decompress workers,
+        host→device staging) never sees the expert.  P-pool entries still
+        backed by their own tensors (admitted but not yet in a row, or over
+        their row's planned grant) serve those in place at zero link cost.
+        """
+        for (l, e) in job.expert_keys:
+            ent = self.caches[l].pools.get("P", {}).get(e)
+            if ent is None:
+                continue
+            pl = ent.payload
+            if isinstance(pl, ExpertPayload) and pl.full and \
+                    not any(isinstance(v, PeerRef)
+                            for v in pl.full.values()) and \
+                    self._full_payload_usable(pl):
+                job.payloads[(l, e)] = pl
+                self.peer.served += 1
+                continue
+            g = self.store.groups.get((l, e))
+            if g is None:
+                continue
+            u_l, c_l, rho_l = self._layer_costs(l)
+            K = max(1, len(g.tensors[0].e_sizes))
+            # full-miss local estimate (P sits above C, so a P resident
+            # holds no host bytes): SM + E reads, then K decompressions
+            # over min(L, K) workers, per tensor
+            local = len(g.tensors) * (u_l * (1.0 + rho_l)
+                                      + c_l * K / max(1, min(self.L, K)))
+            if self.peer.link.p_time(int(g.full_bytes)) >= local:
+                self.peer.fallbacks += 1
+                continue
+            got = self._peer_fetch(l, e)
+            if got is None:
+                self.peer.fallbacks += 1
+                continue
+            job.payloads[(l, e)] = got
+            self.peer.served += 1
+
+    def _reconcile_peer(self, layer: int):
+        """Sync the layer's peer slab with its P pool (decode thread, after
+        a collect phase's admissions) — the peer analogue of
+        :meth:`_reconcile_slab`: slots of experts that left P are freed
+        (generation bump — outstanding PeerRefs turn stale); already
+        row-resident arrivals just swap their payload back to refs (expert
+        weights are immutable, so no rewrite); new residents are written
+        into their EP owner's row (charged to the ledger's
+        ``peer_put_bytes``).  A row out of planned slots keeps the resident
+        backed by its own tensors — still servable in place by
+        :meth:`_serve_peer_residents`."""
+        slab = self._peer_slab(layer)
+        if slab is None:
+            return
+        ppool = self.caches[layer].pools["P"]
+        for e in [e for e in slab.slot_of if e not in ppool]:
+            slab.free(e)
+        names = None
+        for e, ent in ppool.items():
+            pl = ent.payload
+            if not isinstance(pl, ExpertPayload) or not pl.full:
+                continue
+            if all(isinstance(v, PeerRef) and v.valid
+                   for v in pl.full.values()):
+                continue               # already row-resident via refs
+            if names is None:
+                names = [t.name for t in
+                         self.store.groups[(layer, e)].tensors]
+            if e in slab.slot_of:
+                refs = slab.refs(e)    # immutable weights: no rewrite
+                pl.full = {tidx: refs[names[tidx]] for tidx in pl.full}
+                continue
+            if any(isinstance(v, PeerRef) for v in pl.full.values()):
+                # stale refs, bytes gone: the entry self-heals on its next
+                # access (fetch misses the slab -> local decode -> re-admit)
+                continue
+            dev = self._peer_owner(e)
+            if not slab.has_free(dev):
+                continue               # over the row's planned grant
+            tensors, usable = {}, True
+            for tidx, v in pl.full.items():
+                if isinstance(v, SlotRef):    # F->P demotion in device mode
+                    if not v.valid:
+                        usable = False
+                        break
+                    v = v.read()
+                elif isinstance(v, DevicePlanes):
+                    # fused-admit planes demoted before any slab landed
+                    # them: splice standalone (peer rows hold bf16 bytes)
+                    v = self._splice_planes(v)
+                    pl.full[tidx] = v
+                tensors[names[tidx]] = v
+            if not usable:
+                continue
+            refs = slab.put(e, dev, tensors)
+            pl.full = {tidx: refs[names[tidx]] for tidx in pl.full}
+
+    def peer_summary(self) -> Dict[str, object]:
+        """Peer-tier telemetry: the collective-traffic ledger, the profiled
+        link model, submit-time serve/fallback decisions, and per-layer
+        slab occupancy.  ``{"enabled": False}`` without a mesh."""
+        if self.peer is None:
+            return {"enabled": False}
+        out: Dict[str, object] = {
+            "enabled": True, "n_dev": self.peer.n_dev,
+            "served": self.peer.served, "fallbacks": self.peer.fallbacks}
+        out.update(self.peer.ledger.summary())
+        out["link"] = self.peer.link.summary()
+        out["slabs"] = {l: s.summary() for l, s in
+                        sorted(self.peer.slabs.items()) if s is not None}
+        return out
+
     def fault_summary(self) -> Dict[str, object]:
         """Failure-model telemetry (DESIGN.md §Failure model): store
         integrity counters (retries/checksum failures/quarantines), the
-        engine's watchdog/deadline/degradation counters, and — when a
-        FaultPlan is active — its fired counts."""
+        engine's watchdog/deadline/degradation counters, peer-link
+        failures, and — when a FaultPlan is active — its fired counts."""
         with self._cv:
             out: Dict[str, object] = {
                 "worker_restarts": self.worker_restarts,
                 "deadline_hits": self.deadline_hits,
                 "spec_drops": self.spec_drops,
                 "fallback_loads": self.fallback_loads,
+                "peer_link_failures": self.peer_link_failures,
                 "failed_experts": self.failed_experts,
             }
         store_fs = getattr(self.store, "fault_summary", None)
@@ -786,9 +1033,10 @@ class ZipMoEEngine:
 
     @staticmethod
     def _full_payload_usable(pl: "ExpertPayload") -> bool:
-        """No stale refs: a freed/reused slab slot must never be re-admitted
-        as if it still held the old expert's weights."""
-        return all((not isinstance(v, SlotRef)) or v.valid
+        """No stale refs: a freed/reused slot — device slab or peer row —
+        must never be re-admitted as if it still held the old expert's
+        weights."""
+        return all((not isinstance(v, (SlotRef, PeerRef))) or v.valid
                    for v in pl.full.values())
 
     @staticmethod
@@ -808,6 +1056,9 @@ class ZipMoEEngine:
             if not arr.valid:
                 return None
             return bitfield.decompose_np(arr.read_np())[1].tobytes()
+        if isinstance(arr, PeerRef):
+            # peer-row bytes are not host bytes: no SM plane to re-derive
+            return None
         if isinstance(arr, torch.Tensor):
             return bitfield.decompose_np(arr)[1].tobytes()
         return None
@@ -824,6 +1075,16 @@ class ZipMoEEngine:
             return None
         if pool == "F":
             if not payload.full or not self._full_payload_usable(payload):
+                return None
+            if any(isinstance(v, PeerRef) for v in payload.full.values()):
+                # peer-row bytes can't back F without a link fetch; the
+                # entry cascades to P and is promoted on its next demand
+                # hit, whose fetch materialises compute-device tensors
+                return None
+            return ExpertPayload(full=dict(payload.full))
+        if pool == "P":
+            if self.peer is None or not payload.full or \
+                    not self._full_payload_usable(payload):
                 return None
             return ExpertPayload(full=dict(payload.full))
         has_sm = bool(payload.sm)
@@ -849,8 +1110,13 @@ class ZipMoEEngine:
         return None
 
     def _payload(self, layer: int, expert: int) -> Optional[ExpertPayload]:
+        # peer tiers are skipped: their payloads carry PeerRefs (bytes in a
+        # neighbor device's memory), which the host reconstruction pipeline
+        # can't consume — _serve_peer_residents intercepts those instead
         cache = self.caches[layer]
         for t in self.stack.tiers:
+            if t.peer:
+                continue
             ent = cache.pools[t.name].get(expert)
             if ent is not None:
                 if ent.payload is None:
@@ -907,7 +1173,8 @@ class ZipMoEEngine:
                           drift_min_accesses: int = 0,
                           profile_per_layer: bool = True,
                           initial_plan: bool = True,
-                          budget_split: str = "proportional"):
+                          budget_split: str = "proportional",
+                          peer_budget: Optional[float] = None):
         """Turn on byte-budgeted live pool planning: one global byte budget
         for ALL layers' pools, split by observed layer activity and solved
         per layer by the §3.4 planner on that layer's live rank statistics,
@@ -920,7 +1187,11 @@ class ZipMoEEngine:
 
         ``budget_split="waterfill"`` grants the cross-layer budget by
         marginal expected-makespan gain per byte instead of proportionally
-        to activity (see ``LivePlanner._waterfill_budgets``)."""
+        to activity (see ``LivePlanner._waterfill_budgets``).  With a peer
+        mesh, ``peer_budget`` is each device's own byte budget for its
+        slab row (default: ``mem_budget``) — the P tier's memory is the
+        mesh's, not the host's, so it is budgeted separately and solved per
+        device over that shard's rank statistics (``plan_peer_shards``)."""
         from repro_torch.core.planner import LivePlanner
         active = ("F",) if self.cache_mode == "flat" else \
             ("F", "C", "S", "E")
@@ -929,6 +1200,8 @@ class ZipMoEEngine:
                                    drift_min_accesses=drift_min_accesses,
                                    active=active, order=self.stack.order,
                                    budget_split=budget_split)
+        self._peer_budget = float(mem_budget if peer_budget is None
+                                  else peer_budget)
         self.replan_every = max(0, int(replan_every))
         self._plan_steps = 0
         self._plan_probe_base = None
@@ -981,6 +1254,8 @@ class ZipMoEEngine:
                        for l in layers}
         self._plan_access_base = acc
         plans = self.planner.plan(stats, bps, consts, weights=weights)
+        if self.peer is not None:
+            self._plan_peer(plans, bps, consts, weights)
         self.apply_plans(plans)
         self.planner.note_plan(self._plan_steps, reason, hit_rate)
         self.planner.replans[-1]["wall_s"] = time.perf_counter() - t0
@@ -1006,6 +1281,8 @@ class ZipMoEEngine:
                 if bps and bps["F"] > 0:
                     slab_cap = int(plan.cap_bytes.get("F", 0.0) // bps["F"])
                 self._apply_slab_plan(l, min(slab_cap, self.trackers[l].n))
+            if self.peer is not None:
+                self._apply_peer_plan(l)
 
     def _apply_slab_plan(self, layer: int, new_cap: int):
         """Grow/shrink/free one layer's device slab to the byte-planned
@@ -1049,6 +1326,62 @@ class ZipMoEEngine:
             pl.full = {tidx: refs[names[tidx]] for tidx in pl.full}
         old.retire()
         self._slabs[layer] = new
+
+    def _peer_shard_stats(self, layer: int) -> List[np.ndarray]:
+        """Per-device rank statistics: each EP shard's per-expert inclusion
+        probabilities (the layer tracker's mass restricted to the shard's
+        ids, rank-sorted) — what ``plan_peer_shards`` solves over."""
+        tr = self.trackers[layer]
+        n, d = self.n_experts, self.peer.n_dev
+        k = int(round(tr.k_ema)) if tr.n_records else 1
+        k = max(1, min(k, n - 1 if n > 1 else 1))
+        total = tr.counts.sum()
+        per = np.full(n, k / n) if total <= 0 else tr.counts * (k / total)
+        ids_by_dev: List[List[int]] = [[] for _ in range(d)]
+        for e in range(n):
+            ids_by_dev[self._peer_owner(e)].append(e)
+        return [np.sort(per[ids])[::-1] if ids else np.zeros(0)
+                for ids in ids_by_dev]
+
+    def _plan_peer(self, plans, bps, consts, weights: Dict[int, float]):
+        """Per-device §3.4 peer-row budgeting: each device's slab row gets
+        the layer's activity share of the per-device budget, and the solver
+        runs over THAT shard's rank statistics (plan_peer_shards) — a
+        device owning the hot shard earns more slots.  The layer's P size
+        is the sum of its shard grants; cap_bytes follows at the
+        full-tensor cost.  Runs between planner.plan and apply_plans so
+        cache resize + slab grants land atomically with the host plan."""
+        from repro_torch.core.planner import plan_peer_shards
+        total_w = sum(max(0.0, w) for w in weights.values())
+        dev_budget = getattr(self, "_peer_budget", self.planner.mem_budget)
+        for l, plan in plans.items():
+            full = (bps.get(l) or {}).get("F", 0.0)
+            if full <= 0:
+                continue
+            share = (max(0.0, weights.get(l, 0.0)) / total_w) if total_w \
+                else 1.0 / max(1, len(plans))
+            grants = plan_peer_shards(self._peer_shard_stats(l),
+                                      dev_budget * share, full, consts[l])
+            self.peer.dev_caps[l] = grants
+            plan.sizes["P"] = int(sum(grants))
+            plan.cap_bytes["P"] = float(sum(grants)) * full
+
+    def _apply_peer_plan(self, layer: int):
+        """Push the layer's planned per-device slot grants into its peer
+        slab.  Physical rows never move — grants only gate admissions
+        (``has_free``), and the cache resize above already demoted any
+        over-plan P residents, whose slots the next reconcile frees."""
+        caps = self.peer.dev_caps.get(layer)
+        if caps is None:
+            return
+        slab = self.peer.slabs.get(layer)
+        if slab is None:
+            if sum(caps) > 0:
+                # unbuilt (or memoized at capacity 0): drop the memo so the
+                # next _peer_slab() call lazily builds under the new plan
+                self.peer.slabs.pop(layer, None)
+            return
+        slab.set_dev_caps(caps)
 
     def _planner_probe(self) -> Tuple[Optional[float], int]:
         """(hit rate, accesses) over the steps since the last probe — the
@@ -1313,6 +1646,11 @@ class ZipMoEEngine:
                 cache.pin(sel)   # pin-release: _collect (unpinned at drain)
         job.payloads = {(l, e): self._payload(l, e) or ExpertPayload()
                         for l, e in job.expert_keys}
+        if self.peer is not None:
+            # P-tier interception: peer-slab residents are priced and (when
+            # the link wins) fetched synchronously right here, seeding their
+            # tensors below exactly like F hits
+            self._serve_peer_residents(job)
 
         # ---- per-key execution-time priorities (tiered classes) ----------
         key_p: Dict[Tuple[int, int], float] = {}
@@ -1875,6 +2213,12 @@ class ZipMoEEngine:
                 # hierarchical path handles this inside the demote hook)
                 continue
             cache.admit(e, pl)
+        # peer reconcile runs FIRST: an F->P demotion's payload may carry
+        # device-slab SlotRefs, which must be read into the peer row before
+        # the slab reconcile frees the leaver's slot (staling the refs)
+        if self.peer is not None:
+            for l in {l for l, _ in subset}:
+                self._reconcile_peer(l)
         if self.device_cache:
             for l in {l for l, _ in subset}:
                 self._reconcile_slab(l)
@@ -1898,7 +2242,7 @@ class ZipMoEEngine:
                         if isinstance(cand, SlotRef):
                             if cand.valid:
                                 v = cand
-                        elif not isinstance(cand, (DevicePlanes,
+                        elif not isinstance(cand, (DevicePlanes, PeerRef,
                                                    type(None))):
                             v = cand   # already materialised (overflow arm)
                     if v is None:

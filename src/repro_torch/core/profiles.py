@@ -156,3 +156,58 @@ class GemmProfiler:
                 for (l, ne, c), ent in sorted(self.entries.items())},
         }
 
+
+class LinkProfiler:
+    """Profiled peer-interconnect fetch-cost model for the P tier.
+
+    Predicts the wall time of fetching `nbytes` from a peer device's slab
+    over the mesh interconnect.  Seeded analytically from a nominal link
+    bandwidth (``bytes / seed_bw + seed_lat``) so the very first pricing
+    decision is sane; every real fetch then feeds its measured wall time
+    back via :meth:`record` and the effective bandwidth converges by EMA —
+    the same measure-then-refine contract as :class:`GemmProfiler`, and
+    equally engine-agnostic (no tensor library; tests drive it with
+    plain numbers).
+
+    The engine compares ``p_time(full_expert_bytes)`` against the expert's
+    local decode-path estimate per task, and the planner consumes the same
+    number as ``PlanConsts.peer`` (the third Algorithm-3 bottleneck).
+    """
+
+    def __init__(self, seed_bw: float = 50e9, seed_lat: float = 5e-6,
+                 ema: float = 0.25):
+        assert seed_bw > 0 and 0.0 < ema <= 1.0
+        self.seed_bw = float(seed_bw)       # nominal link bandwidth (B/s)
+        self.seed_lat = float(seed_lat)     # per-fetch launch latency (s)
+        self.ema = float(ema)
+        self.bw = float(seed_bw)            # effective measured bandwidth
+        self.lat = float(seed_lat)
+        self.n_samples = 0
+        self.fetch_wall_s = 0.0             # total measured fetch time
+
+    def p_time(self, nbytes: int) -> float:
+        """Predicted fetch wall time for `nbytes` over the link."""
+        return self.lat + max(0, int(nbytes)) / self.bw
+
+    def record(self, nbytes: int, seconds: float):
+        """Fold one measured fetch into the effective bandwidth (EMA).
+        Sub-latency samples only tighten the latency term."""
+        if seconds <= 0 or nbytes <= 0:
+            return
+        self.n_samples += 1
+        self.fetch_wall_s += float(seconds)
+        xfer = float(seconds) - self.lat
+        if xfer > 0:
+            bw = int(nbytes) / xfer
+            self.bw += self.ema * (bw - self.bw)
+        else:
+            self.lat += self.ema * (float(seconds) - self.lat)
+
+    def summary(self) -> Dict[str, object]:
+        return {
+            "seed_bw": self.seed_bw,
+            "bw": self.bw,
+            "lat_s": self.lat,
+            "n_samples": self.n_samples,
+            "fetch_wall_s": self.fetch_wall_s,
+        }

@@ -29,17 +29,21 @@ fires, so views must not outlive the decode step that took them, and
 Thread model: all slab mutation happens on the engine caller's (decode)
 thread — the same single-mutator discipline as the cache pools.  Worker
 threads only produce the device tensors that are later written here.
+
+:class:`PeerSlabMesh` is the peer-HBM (P) tier's counterpart: one slab row
+per device of the mesh, filled and fetched on the decode thread too.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import checkz
+from repro_torch.core import bitfield, checkz
+from repro_torch.core.faults import PeerLinkError
 from repro_torch.kernels import ops
 
 
@@ -205,3 +209,220 @@ class DeviceSlabCache:
                 "resident": len(self.slot_of), "writes": self.writes,
                 "splice_writes": self.splice_writes,
                 "d2h_bytes": self.d2h_bytes, "nbytes": self.nbytes()}
+
+
+# ----------------------------------------------------------------------------
+# peer-HBM slabs: expert slabs sharded over a device mesh (the P tier)
+# ----------------------------------------------------------------------------
+@dataclass(frozen=True)
+class PeerRef:
+    """Handle to one tensor of one expert inside a peer slab row.
+
+    P-pool cache payloads carry these instead of tensors — the bytes live
+    in the OWNER device's memory, not in host memory and not on the
+    compute device.  Validity follows the owner slot's generation, exactly
+    like :class:`SlotRef`."""
+    mesh_slab: "PeerSlabMesh"
+    dev: int
+    slot: int
+    gen: int
+    name: str
+
+    @property
+    def valid(self) -> bool:
+        return self.mesh_slab.gen[self.dev][self.slot] == self.gen
+
+
+class PeerSlabMesh:
+    """Per-layer expert slabs sharded across a list of devices ('ep' axis).
+
+    Row ``d`` is one ``[capacity, *tensor_shape]`` bf16 tensor per expert
+    tensor name, allocated on ``devices[d]``.  Experts are assigned to rows
+    by the EP owner rule (``distributed.sharding.ep_owner``: contiguous
+    expert-id blocks), so a row is exactly the device's shard of the
+    compressed store.  ``devices[0]`` is the compute device.
+
+    * **put** — admission writes the expert's reconstructed tensors into
+      its slot of the owner row in place (``row[slot].copy_``: a host
+      upload for host bits, a device or peer copy for a device tensor);
+      the bytes are charged to the ledger's ``peer_put_bytes`` (NOT the
+      engine's h2d counter, which meters compute-device staging only).
+    * **fetch** — a demand hit on a peer-resident expert copies its slot
+      to the compute device (over NVLink between cards: a peer copy) into
+      a FRESH tensor: a view of the row would see a later occupant's bytes
+      once the slot is reused.  The fetch waits for the copy, as the JAX
+      package's ``block_until_ready`` does; its wall time feeds the
+      :class:`~repro_torch.core.profiles.LinkProfiler`, and each fetch
+      charges one ``collective-permute`` of :meth:`expert_nbytes` to the
+      ledger.
+    * **free/retire** — slot generations exactly as in
+      :class:`DeviceSlabCache`; stale :class:`PeerRef`\\ s never serve.
+
+    Thread model: all mutation AND fetching happens on the engine caller's
+    (decode) thread — peer fetches run synchronously at submit time, so
+    the single-mutator discipline of the cache pools extends unchanged.
+    """
+
+    def __init__(self, layer: int, shapes: Dict[str, Tuple[int, ...]],
+                 capacity: int, devices: Sequence, *, ledger=None,
+                 link=None, dtype=torch.bfloat16):
+        assert capacity > 0, capacity
+        assert len(devices) > 1, devices
+        self.layer = layer
+        self.devices = [torch.device(d) for d in devices]
+        self.n_dev = len(self.devices)
+        self.capacity = int(capacity)          # physical slots per device row
+        self.shapes = {name: tuple(s) for name, s in shapes.items()}
+        self.names = sorted(self.shapes)
+        self.dtype = dtype
+        self.ledger = ledger
+        self.link = link
+        self.rows: List[Dict[str, torch.Tensor]] = [
+            {name: torch.zeros((self.capacity,) + s, dtype=dtype, device=d)
+             for name, s in self.shapes.items()}
+            for d in self.devices]
+        self.slot_of: Dict[int, Tuple[int, int]] = {}   # expert -> (dev, slot)
+        self._free: List[List[int]] = [
+            list(range(self.capacity - 1, -1, -1)) for _ in range(self.n_dev)]
+        # per-device logical capacity (the per-device §3.4 solve may grant a
+        # device fewer slots than the uniform physical row)
+        self.dev_caps: List[int] = [self.capacity] * self.n_dev
+        self.gen: List[List[int]] = [[0] * self.capacity
+                                     for _ in range(self.n_dev)]
+        self.writes = 0
+        self.fetches = 0
+        self.faults = None          # opt-in FaultPlan shim (core/faults)
+        self.link_failures = 0      # fetch() aborts via PeerLinkError
+        # no locks by design: all mutation on the engine caller's (decode)
+        # thread; ZIPMOE_CHECK=1 asserts that (see checkz.MutatorGuard)
+        self._guard = checkz.make_guard(f"PeerSlabMesh(layer={layer})")
+
+    # -- queries -----------------------------------------------------------
+    def __contains__(self, expert: int) -> bool:
+        return expert in self.slot_of
+
+    def refs(self, expert: int) -> Dict[str, PeerRef]:
+        dev, slot = self.slot_of[expert]
+        g = self.gen[dev][slot]
+        return {name: PeerRef(self, dev, slot, g, name) for name in self.names}
+
+    def has_free(self, dev: int) -> bool:
+        used = self.capacity - len(self._free[dev])
+        return bool(self._free[dev]) and used < self.dev_caps[dev]
+
+    def expert_nbytes(self) -> int:
+        """Bytes of one expert's tensors (the per-fetch payload size)."""
+        item = torch.empty((), dtype=self.dtype).element_size()
+        return sum(int(np.prod(s)) * item for s in self.shapes.values())
+
+    def resident_bytes(self, dev: int) -> int:
+        """Bytes of the experts resident in device `dev`'s row."""
+        n = sum(1 for d, _ in self.slot_of.values() if d == dev)
+        return n * self.expert_nbytes()
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for row in self.rows for t in row.values())
+
+    def set_dev_caps(self, caps: Sequence[int]):
+        """Apply per-device logical slot counts (the per-device planner
+        solves).  Shrinking below a device's occupancy only gates NEW
+        admissions — residents are freed by the cache's own demotions."""
+        assert len(caps) == self.n_dev, (len(caps), self.n_dev)
+        self.dev_caps = [min(self.capacity, max(0, int(c))) for c in caps]
+
+    # -- mutation (decode thread only) -------------------------------------
+    def put(self, expert: int, dev: int,
+            tensors: Dict[str, object]) -> Dict[str, PeerRef]:
+        """Write `tensors` into the expert's slot in device `dev`'s row.  A
+        value is host bf16 bits (a uint16 ndarray) or a bf16 tensor on any
+        device."""
+        assert set(tensors) == set(self.shapes), (set(tensors),
+                                                  set(self.shapes))
+        self._guard.check()
+        loc = self.slot_of.get(expert)
+        if loc is None:
+            assert self.has_free(dev), f"peer row {dev} full"
+            slot = self._free[dev].pop()
+            self.slot_of[expert] = loc = (dev, slot)
+        else:
+            assert loc[0] == dev, (expert, loc, dev)
+        d, slot = loc
+        nbytes = 0
+        for name, val in tensors.items():
+            assert tuple(val.shape) == self.shapes[name], (name, val.shape)
+            if isinstance(val, np.ndarray):
+                val = bitfield.from_bits(val)
+            dst = self.rows[d][name][slot]
+            dst.copy_(val)
+            nbytes += dst.numel() * dst.element_size()
+        self.writes += 1
+        if self.ledger is not None:
+            self.ledger.charge_put(nbytes)
+        return self.refs(expert)
+
+    def free(self, expert: int):
+        self._guard.check()
+        loc = self.slot_of.pop(expert, None)
+        if loc is None:
+            return
+        dev, slot = loc
+        self.gen[dev][slot] += 1
+        self._free[dev].append(slot)
+
+    def retire(self):
+        """Decommission the mesh slab (re-planning resized the P tier):
+        every generation bumps — all outstanding PeerRefs turn stale — and
+        the rows are dropped for reclamation."""
+        self._guard.check()
+        for dev in range(self.n_dev):
+            for slot in range(self.capacity):
+                self.gen[dev][slot] += 1
+            self._free[dev] = list(range(self.capacity - 1, -1, -1))
+        self.slot_of.clear()
+        self.rows = []
+
+    # -- the fetch path (decode thread; synchronous) -----------------------
+    def fetch(self, expert: int) -> Optional[Dict[str, torch.Tensor]]:
+        """Copy the expert's tensors to the compute device (device 0).
+        Returns {name: fresh device tensor} or None when the expert is not
+        (validly) resident.  Charges the ledger one collective-permute of
+        the expert's bytes and feeds the link profiler the measured wall
+        time.  Raises :class:`PeerLinkError` when the (shim) link fails —
+        the engine falls back to the local store path."""
+        self._guard.check()
+        loc = self.slot_of.get(expert)
+        if loc is None or not self.rows:
+            return None
+        if self.faults is not None:
+            try:
+                self.faults.peer(expert)
+            except PeerLinkError:
+                self.link_failures += 1
+                if self.ledger is not None:
+                    self.ledger.charge_failure()
+                raise
+        dev, slot = loc
+        dev0 = self.devices[0]
+        t0 = time.perf_counter()
+        # copy=True: a fresh tensor even where the row already lives on the
+        # compute device (a view would alias the slot's next occupant)
+        got = {name: self.rows[dev][name][slot].to(dev0, copy=True)
+               for name in self.names}
+        for d in {dev0, self.devices[dev]}:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        dt = time.perf_counter() - t0
+        self.fetches += 1
+        nbytes = self.expert_nbytes()
+        if self.ledger is not None:
+            self.ledger.charge({"collective-permute": nbytes})
+        if self.link is not None:
+            self.link.record(nbytes, dt)
+        return got
+
+    def summary(self) -> Dict[str, object]:
+        return {"layer": self.layer, "capacity": self.capacity,
+                "n_dev": self.n_dev, "dev_caps": list(self.dev_caps),
+                "resident": len(self.slot_of), "writes": self.writes,
+                "fetches": self.fetches, "nbytes": self.nbytes()}

@@ -11,10 +11,14 @@ and ``core/slab.py``.  This module makes the hierarchy a first-class,
 * its ``payload`` kind — which byte components back a resident
   (``full`` reconstructed bf16, ``sm+e``, ``sm``, or ``e`` chunks),
 * ``cost_bytes`` — the per-expert residency cost derived from a layer's
-  real component sizes (the §3.4 planner's byte denomination).
+  real component sizes (the §3.4 planner's byte denomination),
+* ``peer`` — whether residents live in a *neighbor device's* HBM and are
+  served over the interconnect (a peer copy) instead of the host decode
+  path (the beyond-paper P tier; see DESIGN.md).
 
-The default stack reproduces the paper hierarchy exactly.  The JAX
-package's peer-HBM (P) tier is not ported yet.
+The default stack reproduces the paper hierarchy exactly; ``peer_stack()``
+inserts the P (peer-HBM) tier between F and C — hotter than host-compressed
+residency (a link fetch beats a full decode) but colder than local-HBM F.
 """
 from __future__ import annotations
 
@@ -30,10 +34,11 @@ _PAYLOAD_KINDS = ("full", "sm+e", "sm", "e")
 
 @dataclass(frozen=True)
 class Tier:
-    """One residency tier: name, residency state, payload kind."""
+    """One residency tier: name, residency state, payload kind, locality."""
     name: str
     state: CState
     payload: str                 # one of _PAYLOAD_KINDS
+    peer: bool = False           # resident in a peer device's HBM
 
     def __post_init__(self):
         assert self.payload in _PAYLOAD_KINDS, self.payload
@@ -58,6 +63,7 @@ class Tier:
 
 
 F_TIER = Tier("F", CState.F, "full")
+P_TIER = Tier("P", CState.P, "full", peer=True)
 C_TIER = Tier("C", CState.C, "sm+e")
 S_TIER = Tier("S", CState.S, "sm")
 E_TIER = Tier("E", CState.E, "e")
@@ -93,6 +99,10 @@ class TierStack:
     def index(self, name: str) -> int:
         return self.order.index(name)
 
+    @property
+    def has_peer(self) -> bool:
+        return any(t.peer for t in self.tiers)
+
     def bytes_per_state(self, parts: Dict[str, float]) -> Dict[str, float]:
         """Per-expert residency cost per tier from a layer's component
         sizes — what the engine feeds the planner and telemetry."""
@@ -104,3 +114,11 @@ class TierStack:
 
 # the paper's §3.4 hierarchy — the default everywhere
 DEFAULT_STACK = TierStack((F_TIER, C_TIER, S_TIER, E_TIER))
+
+# F ≺ P ≺ C ≺ S ≺ E: peer-HBM residency between local-full and compressed
+PEER_STACK = TierStack((F_TIER, P_TIER, C_TIER, S_TIER, E_TIER))
+
+
+def peer_stack() -> TierStack:
+    """The stack used when a device mesh is configured (``mesh_devices>1``)."""
+    return PEER_STACK

@@ -27,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed.collectives import all_reduce, permute
+from repro_torch.models.layers import dtype_of
 from repro_torch.models.model import _superblock, stack_layout
 
 
@@ -80,3 +81,18 @@ def pipeline_forward(stage_layers, x_micro, cfg, group=None, *,
         buf = permute(y.contiguous(), torch.empty_like(y), (s + 1) % n_st,
                       (s - 1) % n_st, group, ledger) if n_st > 1 else y
     return all_reduce(acc, dist.ReduceOp.SUM, group, ledger)
+
+
+def reckon_pipeline(cfg, n_stages: int, n_micro: int, mb_shape) -> dict:
+    """What :func:`pipeline_forward` charges a stage's ledger for `n_micro`
+    micro-batches of `mb_shape` ``(B_mb, S)`` over `n_stages` stages: one
+    permute of a micro-batch's activation a tick (``M + P − 1`` ticks)
+    and one all-reduce of the whole result."""
+    B, S = mb_shape
+    act = int(B) * int(S) * cfg.d_model * \
+        torch.empty((), dtype=dtype_of(cfg)).element_size()
+    ticks = int(n_micro) + int(n_stages) - 1
+    return {"collective_ops": {"collective-permute": ticks,
+                               "all-reduce": 1},
+            "collective_bytes": {"collective-permute": ticks * act,
+                                 "all-reduce": int(n_micro) * act}}

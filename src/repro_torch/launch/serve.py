@@ -35,8 +35,16 @@ Cache knobs (§3.4): --mem-budget BYTES (live pool planning; --replan-every,
 splice-admit on a miss, the ragged FFN reads slots in place), --ffn-impl
 ragged|grouped|loop.  Scheduler knobs (§3.3): --profile-p-times,
 --cross-layer-depth N|auto, --freq-decay, --cache-window N.  Failure model:
---fault-plan SPEC, --no-verify, --fetch-deadline.  The peer tier (--mesh
-N > 1, --peer-budget) is not ported and exits with an error.
+--fault-plan SPEC, --no-verify, --fetch-deadline.
+
+Peer-HBM tier (tier stack F/P/C/S/E): --mesh N (> 1) gives the store's
+expert shards slab rows on N devices, --peer-devices the list (default
+the cards cuda:0 .. cuda:N-1, and an error naming the cards found when
+fewer are visible; ``cuda:0,cuda:0,cuda:0,cuda:0`` stands four rows on one
+card, ``cpu,cpu,cpu,cpu`` runs on the CPU; the first must be --device),
+--peer-budget BYTES each row's budget under --mem-budget (default
+--mem-budget).  Prints the ``peer:`` line (link-served experts,
+fallbacks, collective-permute and put bytes, the link's bandwidth).
 
 The zipmoe modes print ``cache:`` telemetry next to the ``overlap:`` line
 (zipmoe) or the ``metrics:`` and ``request[..]`` lines (zipmoe-batch).
@@ -44,6 +52,7 @@ The zipmoe modes print ``cache:`` telemetry next to the ``overlap:`` line
 from __future__ import annotations
 
 import argparse
+import sys
 import tempfile
 import time
 
@@ -53,7 +62,7 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.store import build_store
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, resolve_peer_devices
 from repro_torch.models import init_params
 from repro_torch.models.model import check_supported
 from repro_torch.serving.server import BatchServer
@@ -75,7 +84,7 @@ def print_sched_telemetry(zs, args):
               f"({ps['measure_wall_s']*1e3:.1f}ms profiling)")
     if args.mem_budget is not None:
         pls = zs.plan_summary()
-        order = zs.engine.stack.order      # F/C/S/E
+        order = zs.engine.stack.order      # F/C/S/E, plus P on a mesh
         sizes = {l: "".join(f"{p}{s[p]}" for p in order if p in s)
                  for l, s in sorted((int(l), d["sizes"])
                                     for l, d in pls["layers"].items())}
@@ -84,6 +93,12 @@ def print_sched_telemetry(zs, args):
               f"replans={pls['n_replans']} "
               f"({', '.join(ev['reason'] for ev in pls['replans'])}) "
               f"sizes={sizes}")
+    if args.mesh > 1:
+        ps = zs.peer_summary()
+        print(f"peer: served={ps['served']} fallbacks={ps['fallbacks']} "
+              f"collective_bytes={ps['total_bytes']} "
+              f"put_bytes={ps['peer_put_bytes']} "
+              f"link_bw={ps['link']['bw']/1e9:.1f}GB/s")
     if zs._auto_depth:
         ov = zs.overlap_summary()
         print(f"auto-depth: depth={ov['cross_layer_depth']} "
@@ -192,15 +207,23 @@ def parse_args(argv=None):
                          "'auto' tunes N online from the observed "
                          "hidden-fetch fraction")
     ap.add_argument("--mesh", type=int, default=1,
-                    help="devices of the peer-HBM tier (not ported: only "
-                         "1 is accepted)")
+                    help="shard the compressed store's experts over N "
+                         "devices ('ep' axis) and add the peer-HBM (P) "
+                         "tier: hits on experts resident in a neighbor's "
+                         "slab row copy over the link instead of the host "
+                         "decode path")
+    ap.add_argument("--peer-devices", default=None,
+                    help="comma-separated devices of the --mesh rows, the "
+                         "first the compute device (default: cuda:0 .. "
+                         "cuda:N-1; e.g. cpu,cpu,cpu,cpu)")
     ap.add_argument("--budget-split", default="proportional",
                     choices=["proportional", "waterfill"],
                     help="cross-layer byte-budget split: activity-"
                          "proportional, or water-filling on marginal "
                          "makespan gain per byte")
     ap.add_argument("--peer-budget", type=float, default=None,
-                    help="per-device peer-slab byte budget (not ported)")
+                    help="per-device peer-slab byte budget (default: "
+                         "--mem-budget)")
     ap.add_argument("--freq-decay", type=float, default=1.0,
                     help="FreqTracker exponential decay (<1 forgets stale "
                          "popularity under drifting traces; 1.0 = never)")
@@ -218,9 +241,8 @@ def parse_args(argv=None):
                     help="seconds before a blocked expert fetch raises "
                          "FetchTimeout instead of hanging (0 = unbounded)")
     args = ap.parse_args(argv)
-    if args.mesh != 1 or args.peer_budget is not None:
-        ap.error("--mesh / --peer-budget: the multi-device peer tier is not "
-                 "ported to repro_torch (only --mesh 1)")
+    if args.mesh < 1:
+        ap.error("--mesh expects a device count >= 1")
     if args.cross_layer_depth != "auto":
         try:
             args.cross_layer_depth = int(args.cross_layer_depth)
@@ -264,6 +286,9 @@ def serve_zip(args, params, cfg, dev, store_dir, rng):
                    replan_every=args.replan_every,
                    plan_step=args.plan_step,
                    budget_split=args.budget_split,
+                   mesh_devices=args.mesh,
+                   peer_budget=args.peer_budget,
+                   peer_devices=args.peer_devs,
                    verify=False if args.no_verify else None,
                    faults=(FaultPlan.parse(args.fault_plan)
                            if args.fault_plan else None),
@@ -334,6 +359,14 @@ def main(argv=None):
                            vocab_size=2048)
     check_supported(cfg, "rows")
     dev = resolve_device(args.device)
+    args.peer_devs = None
+    if args.mesh > 1 and args.mode != "resident":
+        try:
+            args.peer_devs = resolve_peer_devices(
+                args.mesh, args.peer_devices.split(",")
+                if args.peer_devices else None)
+        except (RuntimeError, ValueError) as e:
+            sys.exit(f"serve: --mesh {args.mesh}: {e}")
     params = init_params(cfg, seed=0, device=dev)
     rng = np.random.default_rng(0)
 

@@ -122,6 +122,20 @@ def mla_decode_seqsharded(p, x, cfg, cache, pos: int, mesh, *,
     return mla_absorb_out(p, x, cfg, o_c, w_v), cache
 
 
+def reckon_seqshard_decode(cfg, batch: int, n_steps: int = 1) -> dict:
+    """The collectives of `n_steps` seq-sharded decode steps on one rank
+    decoding `batch` rows: per attention layer and step, three f32
+    all-reduces — the max and the normaliser [B, H] and the numerator
+    [B, H, D] (MLA: [B, H, C]).  The ledger's keys and kind names."""
+    from repro_torch.models.model import mixer_kind
+    n_attn = sum(mixer_kind(cfg, i) == "attn" for i in range(cfg.n_layers))
+    width = cfg.kv_lora_rank if cfg.attn == "mla" else cfg.head_dim
+    per = (2 + width) * int(batch) * cfg.n_heads * 4
+    n = n_attn * int(n_steps)
+    return {"collective_ops": {"all-reduce": 3 * n},
+            "collective_bytes": {"all-reduce": per * n}}
+
+
 def seqshard_caches(caches, mesh, *, axis: str = "model", batch_axes=None):
     """This rank's caches for ``decode_step(attn_impl="seqshard")``, cut
     from full per-layer `caches` (new tensors): every leaf's rows split

@@ -1,6 +1,7 @@
 """Batch construction: seeded random inputs of one shape cell, drawn with
 numpy exactly as the JAX package draws them, so both packages can be fed
-the same batch.
+the same batch; and shape-only stand-ins on the ``meta`` device (the dry
+run), from the same spec.
 
 Batch dict conventions (torch tensors on the target device):
 
@@ -21,6 +22,9 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import dtype_of
+from repro_torch.models.model import init_layer_cache
+
+META = torch.device("meta")
 
 
 def batch_spec(cfg, shape, kind=None) -> Dict[str, Any]:
@@ -71,3 +75,16 @@ def make_batch(cfg, shape, kind=None, seed=0, device=None
             out[name] = torch.from_numpy(
                 rng.standard_normal(shp) * 0.02).to(dt).to(dev)
     return out
+
+
+def make_batch_structs(cfg, shape, kind=None) -> Dict[str, torch.Tensor]:
+    """``meta``-device stand-ins of :func:`make_batch` (dry run: shapes and
+    dtypes, no storage)."""
+    return {name: torch.empty(shp, dtype=dt, device=META)
+            for name, (shp, dt) in batch_spec(cfg, shape, kind).items()}
+
+
+def cache_structs(cfg, batch: int, length: int):
+    """``meta``-device stand-ins of ``models.model.init_cache``."""
+    return [init_layer_cache(cfg, i, batch, length, META)
+            for i in range(cfg.n_layers)]

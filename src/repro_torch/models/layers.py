@@ -79,8 +79,10 @@ def apply_mrope(x, positions3, theta, sections=(16, 24, 24)):
         secs[-1] = half - secs[0] - secs[1]
     freqs = torch.from_numpy(rope_freqs(d, theta).astype(np.float32)).to(
         x.device)                                             # [D/2]
+    # output_size: the meta device (the dry run) cannot read `secs` back
     chan = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                   torch.tensor(secs, device=x.device))
+                                   torch.tensor(secs, device=x.device),
+                                   output_size=half)
     p = positions3.permute(1, 2, 0).float()                   # [B, S, 3]
     angles = p[..., chan] * freqs                             # [B, S, D/2]
     cos = torch.cos(angles)[..., None, :]

@@ -87,8 +87,16 @@ holds them as group ``(layer, 0)``.  ``decode_rows`` refuses an
 encoder-decoder, and the server a config fed input embeddings (qwen2-vl-2b):
 ``models.model.refusal`` says why.
 
-Not ported yet: the multi-device peer tier (``mesh_devices`` raises
-``NotImplementedError``).
+* **Peer-HBM tier** (``mesh_devices > 1``) — the expert store's shards
+  get slab rows on ``peer_devices`` (default ``cuda:0`` .. ``cuda:N-1``;
+  ``["cuda:0"] * N`` stands N rows on one card, ``["cpu"] * N`` runs on
+  the CPU); the stack becomes F ≺ P ≺ C ≺ S ≺ E, and a hit on a P resident
+  is copied from its owner's row to ``peer_devices[0]`` (the compute
+  device) when the profiled link beats local reconstruction.
+  ``peer_budget`` is each row's byte budget under ``mem_budget`` planning;
+  ``peer_summary()`` reports served / fallback counts, the ledger's
+  ``collective-permute`` bytes and the link model.  The peer rows hold
+  spliced tensors, so ``fused_recovery`` is refused.
 
 ``ZipServer.decode_step`` is validated against the fully-resident
 ``models.decode_step`` and against the JAX package's ``ZipServer``.
@@ -108,7 +116,7 @@ from repro_torch.core.faults import FetchError, FetchTimeout, StepFault
 from repro_torch.core.profiles import GemmProfiler
 from repro_torch.core.slab import SlotRef
 from repro_torch.core.store import EXPERT_TENSORS, ExpertStore
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, resolve_peer_devices
 from repro_torch.kernels.moe_gemm import BLOCK_C
 from repro_torch.kernels.ops import (bucket_rows, fused_zip_gemm,
                                      grouped_expert_gemm, recover_bf16_host,
@@ -163,17 +171,23 @@ class ZipServer:
                  mem_budget: Optional[float] = None,
                  replan_every: int = 32, plan_step: float = 0.125,
                  budget_split: str = "proportional", mesh_devices: int = 1,
+                 peer_budget: Optional[float] = None,
                  verify: Optional[bool] = None, faults=None,
-                 fetch_deadline_s: Optional[float] = 120.0, device=None):
+                 fetch_deadline_s: Optional[float] = 120.0, device=None,
+                 peer_devices=None):
         """``device_recovery`` (the JAX package's ``use_pallas_recovery``)
         splices host-mode recoveries with the splice kernel on `device`
         instead of numpy: the grouped/ragged FFNs then take the spliced
-        tensor on the device, the ``"loop"`` oracle downloads it."""
+        tensor on the device, the ``"loop"`` oracle downloads it.
+        ``mesh_devices > 1`` adds the peer-HBM tier over ``peer_devices``
+        (see the module docstring), whose first entry must be `device`."""
         check_supported(cfg, "zipserver")
         self._rows_refusal = refusal(cfg, "rows")
         assert ffn_impl in ("ragged", "grouped", "loop"), ffn_impl
-        if mesh_devices != 1:
-            raise NotImplementedError("mesh_devices is not ported yet")
+        assert mesh_devices >= 1
+        assert not (mesh_devices > 1 and fused_recovery), \
+            "fused_recovery payloads are host bit-planes; the peer tier " \
+            "slabs hold spliced device tensors — pick one"
         # "auto": start synchronous and let the observed hidden-fetch
         # fraction tune the depth online (see _tune_depth)
         self._auto_depth = cross_layer_depth == "auto"
@@ -184,6 +198,11 @@ class ZipServer:
             "fused_recovery keeps weights as host bit-planes; device_cache " \
             "keeps them spliced on device — pick one"
         self.device = resolve_device(device)
+        peer_devs = None
+        if mesh_devices > 1:
+            # the compressed store's shards get slab rows on the mesh's
+            # devices ('ep' axis); the compute device is device 0
+            peer_devs = resolve_peer_devices(mesh_devices, peer_devices)
         self.cfg = cfg
         self.prefetch = prefetch
         self.prefetch_width = prefetch_width
@@ -215,7 +234,7 @@ class ZipServer:
             cache_mode=cache_mode, flat_capacity=flat_capacity,
             flat_policy=flat_policy, delta=delta, freq_decay=freq_decay,
             device_cache=device_cache, device=self.device,
-            fetch_deadline_s=fetch_deadline_s)
+            peer_devices=peer_devs, fetch_deadline_s=fetch_deadline_s)
         if device_recovery and not device_cache and ffn_impl != "loop":
             # the grouped/ragged GEMM consumes the spliced tensor on the
             # device — keep it there, through the engine's counting hook so
@@ -231,7 +250,8 @@ class ZipServer:
                                           replan_every=replan_every,
                                           plan_step=plan_step,
                                           initial_plan=pool_sizes is None,
-                                          budget_split=budget_split)
+                                          budget_split=budget_split,
+                                          peer_budget=peer_budget)
         if cache_window:
             self.engine.enable_cache_windows(cache_window)
         # measured per-expert grouped-GEMM times feeding Algorithm 1's p_n
@@ -657,6 +677,12 @@ class ZipServer:
         plans, replan events, and byte occupancy — next to
         :meth:`cache_summary` / :meth:`overlap_summary`."""
         return self.engine.plan_summary()
+
+    def peer_summary(self) -> Dict[str, object]:
+        """Peer-HBM (P tier) telemetry: link-served vs fallback counts,
+        collective-traffic ledger, profiled link model, and per-layer slab
+        occupancy.  ``{"enabled": False}`` without a mesh."""
+        return self.engine.peer_summary()
 
     # ------------------------------------------------------------------
     # expert FFN implementations

@@ -769,3 +769,55 @@ def test_gloo_ranks_on_card(cuda, tmp_path):
         assert (got == (rank - 1) % 2 + 1).all()
         assert summary["collective_bytes"] == {"collective-permute": 30}
         assert summary["collective_ops"] == {"collective-permute": 1}
+
+
+def test_peer_tier_on_card(cuda, tmp_path):
+    """Four peer rows on the card (a card each where there are four): a
+    fetch lands on the compute device as a copy that keeps its bytes when
+    the slot is reused; a smoke-size ZipServer at mesh 4 gives the mesh-1
+    server's logits bit for bit, link-serves experts and launches the
+    splice-admit and the ragged GEMM."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.slab import PeerSlabMesh
+    from repro_torch.core.store import build_store
+    from repro_torch.models import init_params
+    from repro_torch.serving.zipserve import ZipServer
+    n = torch.cuda.device_count()
+    rows = [torch.device("cuda", i) for i in range(4)] if n >= 4 \
+        else [torch.device("cuda", torch.cuda.current_device())] * 4
+    shapes = {"w_up": (64, 72), "w_down": (72, 64)}
+    slab = PeerSlabMesh(0, shapes, 1, rows)
+    a = {k: torch.randn(s, device=cuda).to(torch.bfloat16)
+         for k, s in shapes.items()}
+    slab.put(1, 3, a)
+    got = slab.fetch(1)
+    slab.free(1)
+    slab.put(2, 3, {k: torch.zeros_like(v) for k, v in a.items()})
+    for k in shapes:
+        assert got[k].device == rows[0] and _same(got[k], a[k])
+    cfg = get_smoke_config("qwen2-moe-a2.7b", n_layers=2)
+    params = init_params(cfg, seed=0, device=cuda)
+    build_store(params, cfg, str(tmp_path), device=cuda)
+    out = []
+    for mesh in (1, 4):
+        zs = ZipServer(params, cfg, str(tmp_path), L=2, device_cache=True,
+                       pool_sizes={"F": 2, "C": 2, "S": 2, "E": 2},
+                       device=cuda, mesh_devices=mesh,
+                       peer_devices=rows if mesh > 1 else None)
+        try:
+            caches = zs.init_cache(2, 6)
+            tok = torch.zeros((2, 1), dtype=torch.long, device=cuda)
+            _build.reset_launches()
+            lgs = []
+            for i in range(6):
+                lg, caches = zs.decode_step(tok, caches, i)
+                lgs.append(lg)
+                tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+            torch.cuda.synchronize()
+            out.append((lgs, zs.peer_summary(), dict(_build.LAUNCHES)))
+        finally:
+            zs.close()
+    (base, _, _), (lgs, ps, launches) = out
+    assert all(_same(x, y) for x, y in zip(base, lgs))
+    assert ps["served"] > 0 and ps["total_bytes"] > 0, ps
+    assert launches["splice_admit"] > 0 and launches["slab_gemm"] > 0

@@ -114,15 +114,21 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    """Options whose kernels or modules are not ported yet refuse loudly."""
+    """Every option constructs on the CPU; the peer tier without the cards
+    its default needs raises instead of falling back to fewer devices or
+    to the CPU, and constructs on explicit ``cpu`` rows."""
     from repro_torch.core.store import build_store
     from repro_torch.models import init_params
     from repro_torch.serving.zipserve import ZipServer
     cfg = get_smoke_config("qwen2-moe-a2.7b", n_layers=1)
     params = init_params(cfg, seed=0, device="cpu")
     build_store(params, cfg, str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="peer_devices"):
         ZipServer(params, cfg, str(tmp_path), device="cpu", mesh_devices=2)
+    zs = ZipServer(params, cfg, str(tmp_path), device="cpu", mesh_devices=2,
+                   peer_devices=["cpu"] * 2)
+    assert zs.peer_summary()["n_dev"] == 2
+    zs.close()
     # the FFN paths and options ported since construct on the CPU
     for kw in (dict(ffn_impl="grouped"), dict(ffn_impl="loop"),
                dict(fused_recovery=True), dict(profile_p_times=True),

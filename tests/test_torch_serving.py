@@ -483,11 +483,22 @@ def test_cli_modes(capsys, mode, flags, lines):
 
 
 def test_cli_refuses_mesh(capsys):
+    """``--mesh 4`` on four ``cpu`` rows serves and prints the ``peer:``
+    line with link-served experts; ``--mesh 2`` alone needs two cards and
+    exits non-zero, naming the cards it found."""
     from repro_torch.launch.serve import main
+    main(CLI + ["--mode", "zipmoe", "--device-cache", "--mesh", "4",
+                "--peer-devices", "cpu,cpu,cpu,cpu"])
+    peer = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("peer:")]
+    assert len(peer) == 1, peer
+    fields = dict(kv.split("=") for kv in peer[0].split()[1:])
+    assert int(fields["served"]) > 0 and \
+        int(fields["collective_bytes"]) > 0, peer
     with pytest.raises(SystemExit) as ei:
         main(CLI + ["--mode", "zipmoe", "--mesh", "2"])
     assert ei.value.code != 0
-    assert "not ported" in capsys.readouterr().err
+    assert "0 are visible (none)" in str(ei.value.code)
 
 
 def test_routing_trace_matches_reference(models, monkeypatch):
