@@ -246,8 +246,11 @@ failure exits non-zero:
      valid, and one expert a row fetched back equal to the store's bits;
    * (c) (b) planned: ``mem_budget`` of 24 experts' bf16 bytes,
      ``peer_budget`` of 8 a row, a forced re-plan before step 4: logits
-     bit-identical to (a), each layer's per-row grants summing to its
-     plan's P size, each row's resident bytes within its budget;
+     bit-identical to (a); after the re-plan each row's grant is the
+     per-device solver's over that row's shard under its layer's row
+     budget, the row budgets within ``peer_budget``, and the slab gating
+     on the grants; between steps no row grows past its grant; each row's
+     resident bytes within its budget;
    * (d) ``python -m repro_torch.launch.dryrun --arch qwen2-moe-a2.7b
      --shape decode_32k`` as a subprocess: exit 0 and its record.
 
@@ -3659,18 +3662,58 @@ def peer_phase(torch, np, dev, cfg, store_dir):
           f"logits bit-identical; {json.dumps(w)}", flush=True)
 
     # -- (c) planned: a host budget and a per-row peer budget ---------------
+    from repro_torch.core.planner import plan_peer_shards
     f_bytes = min(nbytes)
     budget, peer_budget = PLAN_BUDGET_EXPERTS * f_bytes, \
         PEER_BUDGET_EXPERTS * f_bytes
     row_peak = [0] * PEER_MESH
+    gated = {}          # layer -> (grants, occupancy) when last watched
+    solved = []         # layers whose grants were re-solved and matched
+
+    def occupancy(slab):
+        return [sum(1 for r, _ in slab.slot_of.values() if r == dev)
+                for dev in range(PEER_MESH)]
 
     def watch_rows(zs, i):
-        slabs = [s for s in zs.engine.peer.slabs.values() if s is not None]
+        eng = zs.engine
+        slabs = {l: s for l, s in eng.peer.slabs.items() if s is not None}
         for r in range(PEER_MESH):
-            row_peak[r] = max(row_peak[r],
-                              sum(s.resident_bytes(r) for s in slabs))
+            row_peak[r] = max(row_peak[r], sum(s.resident_bytes(r)
+                                               for s in slabs.values()))
+        # a row admits only under its grant: since the last watch it grew
+        # to its grant at most (a shrunk grant evicts nothing)
+        for l, slab in slabs.items():
+            if l in gated:
+                caps, occ = gated[l]
+                now = occupancy(slab)
+                check(all(a <= max(c, b) for a, b, c in zip(now, occ, caps)),
+                      f"peer (c): layer {l} rows {now} outgrew grants {caps} "
+                      f"from {occ}")
         if i == PLAN_FORCED_AT:
-            zs.engine.replan(reason="forced")
+            eng.replan(reason="forced")
+            # each grant is the solver's over that row's shard alone, under
+            # the row budget its layer got; the budgets split peer_budget
+            for l in zs._moe_layers:
+                caps, rb = eng.peer.dev_caps[l], eng.peer.row_budgets[l]
+                full = eng._bytes_per_state(l)["F"]
+                check(caps == plan_peer_shards(
+                    eng._peer_shard_stats(l), rb, full,
+                    eng.plan_consts(l)) and all(c * full <= rb
+                                                for c in caps),
+                      f"peer (c): layer {l} grants {caps} are not the "
+                      f"per-row solve under {rb} B")
+                slab = eng.peer.slabs.get(l)
+                gate = None if slab is None else slab.dev_caps
+                check(gate is None or gate == [min(slab.capacity, c)
+                                               for c in caps],
+                      f"peer (c): layer {l} slab gates on {gate}, not the "
+                      f"grants {caps}")
+                solved.append(l)
+            check(sum(eng.peer.row_budgets.values()) <= peer_budget * (
+                1 + 1e-12), f"peer (c): row budgets "
+                f"{eng.peer.row_budgets} exceed {peer_budget} B")
+        for l, slab in slabs.items():
+            gated[l] = (list(slab.dev_caps), occupancy(slab))
 
     zs = server(mem_budget=budget, peer_budget=peer_budget,
                 replan_every=PLAN_REPLAN_EVERY, mesh_devices=PEER_MESH,
@@ -3682,12 +3725,9 @@ def peer_phase(torch, np, dev, cfg, store_dir):
         c = numbers["planned"] = peer_numbers(planned, zs, n_moe)
         pls = zs.plan_summary()
         eng = zs.engine
-        for l in zs._moe_layers:
-            caps = eng.peer.dev_caps.get(l)
-            size = eng.planner.plans[l].sizes.get("P", 0)
-            check(caps is not None and sum(caps) == size,
-                  f"peer (c): layer {l} grants {caps} != plan P {size}")
         c.update(dev_caps={l: eng.peer.dev_caps[l] for l in zs._moe_layers},
+                 row_budgets={l: eng.peer.row_budgets[l]
+                              for l in zs._moe_layers},
                  plan_sizes={l: eng.planner.plans[l].sizes
                              for l in zs._moe_layers},
                  n_plans=pls["n_plans"], n_replans=pls["n_replans"],
@@ -3695,6 +3735,9 @@ def peer_phase(torch, np, dev, cfg, store_dir):
                  budget_bytes=budget)
     finally:
         zs.close()
+    check(sorted(solved) == sorted(zs._moe_layers) and gated,
+          f"peer (c): grants re-solved for layers {solved}, rows watched "
+          f"for {sorted(gated)}")
     check(same_logits(torch, base, planned),
           "peer (c): planned mesh-4 logits differ from mesh 1's")
     check(pls["n_replans"] >= 1, f"peer (c): {pls['n_replans']} re-plans")

@@ -155,6 +155,8 @@ class _PeerContext:
         self.slabs: Dict[int, Optional[PeerSlabMesh]] = {}
         # single-writer: decode thread (per-device planned slot grants)
         self.dev_caps: Dict[int, List[int]] = {}
+        # the per-device byte budget each layer's grants were solved under
+        self.row_budgets: Dict[int, float] = {}
         # single-writer: decode thread (submit-time serve/fallback tallies)
         self.served = 0        # P-resident experts materialised via the link
         self.fallbacks = 0     # P-resident but priced/failed to local decode
@@ -1363,6 +1365,7 @@ class ZipMoEEngine:
             grants = plan_peer_shards(self._peer_shard_stats(l),
                                       dev_budget * share, full, consts[l])
             self.peer.dev_caps[l] = grants
+            self.peer.row_budgets[l] = dev_budget * share
             plan.sizes["P"] = int(sum(grants))
             plan.cap_bytes["P"] = float(sum(grants)) * full
 

@@ -11,8 +11,10 @@ axis names and sizes only (``(16, 16)`` ("data", "model") single-pod,
 ``(2, 16, 16)`` ("pod", "data", "model") multi-pod).  For each cell it
 records
 
-* the status (``configs.registry.shape_applicable``: ``skip`` with the
-  reason, else ``ok``, or ``error`` with the traceback);
+* the status: ``skip`` with the reason where
+  ``configs.registry.shape_applicable`` refuses the cell or the
+  ``--variant`` changes nothing in it (``variant_applicable``), else
+  ``ok``, or ``error`` with the traceback;
 * per-device argument bytes: params (bf16; AdamW's two f32 moments beside
   them for train), the KV/SSM cache for decode, and the batch, each leaf
   cut by its spec (``distributed.sharding.param_pspecs`` with the FSDP
@@ -37,7 +39,9 @@ port, so ``collective_bytes_per_device`` is null there, with the reason.
 The ``seqkv`` decode variant reckons its all-reduces as the seq-sharded
 decode charges them (``models.decode_attention.reckon_seqshard_decode``),
 and ``--pp-demo`` its permutes and all-reduce as the pipeline does
-(``distributed.pipeline.reckon_pipeline``).
+(``distributed.pipeline.reckon_pipeline``).  Of the JAX package's
+``--variant`` presets the port keeps those that change what it reckons
+(``VARIANTS``).
 
 Usage::
 
@@ -84,24 +88,42 @@ NO_COLLECTIVES = ("the port runs this cell's step on one device: the "
                   "collectives XLA's partitioner inserts for its "
                   "shardings have no counterpart to reckon")
 
-# perf-variant presets of the JAX package's dry run
+# the perf-variant presets of the JAX package's dry run that change what
+# the port reckons.  Its EP-constraint and EP-padding presets set config
+# fields nothing in the port reads, and its bf16-score presets change only
+# operand dtypes, which neither the FLOP count nor the argument bytes see:
+# the port has none of them, so --variant refuses those names.
 VARIANTS = {
     "baseline": {},
     "moegroup2k": {"cfg": {"moe_group_size": 2048}},
     "moegroup1k": {"cfg": {"moe_group_size": 1024}},
     "scatter": {"moe_impl": "scatter"},
     "seqkv": {"seq_shard": True, "attn_impl": "seqshard"},
-    "epconstraint": {"cfg": {"moe_ep_constraint": True}},
-    "eppad64": {"cfg": {"moe_pad_to": 64, "moe_group_size": 1024}},
-    "seqkv+ep": {"seq_shard": True, "attn_impl": "seqshard",
-                 "cfg": {"moe_ep_constraint": True}},
-    "moegroup2k+ep": {"cfg": {"moe_group_size": 2048,
-                              "moe_ep_constraint": True}},
     "noremat": {"remat": False},
-    "bf16scores": {"cfg": {"attn_f32_inputs": False}},
-    "bf16scores+moegroup1k": {"cfg": {"attn_f32_inputs": False,
-                                      "moe_group_size": 1024}},
 }
+
+
+def variant_applicable(cfg, shape, variant: str,
+                       moe_impl: str) -> Tuple[bool, str]:
+    """(True, "") when `variant` changes what the port reckons for the
+    cell, else (False, why): a record under a variant's name is one the
+    variant changed."""
+    opts = VARIANTS[variant]
+    g = opts.get("cfg", {}).get("moe_group_size")
+    if g is not None:
+        if not cfg.is_moe or moe_impl != "einsum":
+            return False, f"{variant}: groups only the einsum MoE dispatch"
+        if shape.kind == "decode" or not (shape.seq_len > g
+                                          and shape.seq_len % g == 0):
+            return False, (f"{variant}: {shape.seq_len}-token sequences "
+                           f"do not split into {g}-token groups")
+    if "moe_impl" in opts and not cfg.is_moe:
+        return False, f"{variant}: {cfg.name} has no MoE layer"
+    if opts.get("seq_shard") and shape.kind != "decode":
+        return False, f"{variant}: shards the decode KV cache only"
+    if "remat" in opts and shape.kind != "train":
+        return False, f"{variant}: remat runs in training only"
+    return True, ""
 
 
 class AbstractMesh(NamedTuple):
@@ -278,6 +300,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
     remat = opts.get("remat", remat)
     seqkv = opts.get("attn_impl") == "seqshard" and shape.kind == "decode"
     ok, reason = shape_applicable(cfg, shape_name)
+    if ok:
+        ok, reason = variant_applicable(cfg, shape, variant, moe_impl)
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
            "variant": variant, "kind": shape.kind, "moe_impl": moe_impl}
     if not ok:

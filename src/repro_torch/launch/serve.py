@@ -367,6 +367,10 @@ def main(argv=None):
                 if args.peer_devices else None)
         except (RuntimeError, ValueError) as e:
             sys.exit(f"serve: --mesh {args.mesh}: {e}")
+        if args.peer_devs[0] != dev:
+            sys.exit(f"serve: --mesh {args.mesh}: the first peer device "
+                     f"{args.peer_devs[0]} is not the compute device {dev} "
+                     f"(--device); pass --peer-devices starting with {dev}")
     params = init_params(cfg, seed=0, device=dev)
     rng = np.random.default_rng(0)
 

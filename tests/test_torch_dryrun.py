@@ -15,6 +15,9 @@ meta device, held to the JAX package where the two reckon the same thing.
 * The CLI: ``--all --mesh both`` writes a record per cell with no error,
   the ``seqkv`` variant reckons the seq-sharded decode's all-reduces, and
   ``--pp-demo`` the pipeline's collectives.
+* Each ``--variant`` changes its cell's record against baseline's, is
+  recorded ``skip`` (with the reason) on a cell it cannot change, and the
+  JAX package's presets that change nothing the port reckons are refused.
 
 Tolerances: exact (integer FLOP and byte counts; the same float formula).
 """
@@ -155,3 +158,44 @@ def test_cli_seqkv_and_pp_demo(tmp_path):
     assert rec["status"] == "ok" and rec["stages"] == 2
     assert rec["collectives"]["collective_ops"] == {
         "collective-permute": dryrun.PP_MICRO + 1, "all-reduce": 1}
+
+
+ARCH = "qwen2-moe-a2.7b"
+
+
+@pytest.mark.parametrize("variant,shape", [
+    ("moegroup2k", "train_4k"), ("moegroup1k", "prefill_32k"),
+    ("scatter", "train_4k"), ("seqkv", "decode_32k"),
+    ("noremat", "train_4k")])
+def test_variant_changes_its_record(tmp_path, variant, shape):
+    base = dryrun.run_cell(ARCH, shape, "single", out_dir=tmp_path)
+    rec = dryrun.run_cell(ARCH, shape, "single", variant=variant,
+                          out_dir=tmp_path)
+    assert base["status"] == rec["status"] == "ok", rec
+    keys = ("flops_global", "argument_bytes_per_device",
+            "collective_bytes_per_device")
+    assert any(rec[k] != base[k] for k in keys), (variant, shape)
+    assert (tmp_path / f"{ARCH}__{shape}__single__{variant}.json").exists()
+
+
+@pytest.mark.parametrize("arch,variant,shape", [
+    (ARCH, "moegroup2k", "decode_32k"), (ARCH, "seqkv", "train_4k"),
+    (ARCH, "noremat", "prefill_32k"), ("granite-8b", "scatter", "train_4k"),
+    ("granite-8b", "moegroup1k", "train_4k")])
+def test_variant_skips_a_cell_it_cannot_change(tmp_path, arch, variant,
+                                               shape):
+    rec = dryrun.run_cell(arch, shape, "single", variant=variant,
+                          out_dir=tmp_path)
+    assert rec["status"] == "skip" and rec["reason"].startswith(variant), rec
+    assert "flops_global" not in rec
+
+
+@pytest.mark.parametrize("variant", ["epconstraint", "eppad64", "seqkv+ep",
+                                     "moegroup2k+ep", "bf16scores",
+                                     "bf16scores+moegroup1k"])
+def test_cli_refuses_variants_the_port_cannot_tell_apart(tmp_path, variant):
+    with pytest.raises(SystemExit) as ei:
+        dryrun.main(["--arch", ARCH, "--shape", "train_4k", "--variant",
+                     variant, "--out-dir", str(tmp_path)])
+    assert ei.value.code == 2
+    assert not list(tmp_path.glob("*.json"))

@@ -8,22 +8,31 @@ test (``tests/test_faults.py``):
   never a view a later occupant of the slot could rewrite;
 * the engine's submit-time peer serving: link-priced fetches seed demand
   payloads like F hits, bit-exact against the store, with no h2d bytes;
-  the per-device planner's grants sum to the layer's P size;
+  each row's planned grant is what the reference's per-device solver
+  gives that row's shard, and a row admits only up to its grant;
 * ``ZipServer`` at ``mesh_devices=4`` against ``mesh_devices=1`` on the
   same trace, with ``device_cache`` off (as the reference test) and on
   (as the main path): logits bit-identical, peer-served experts, and
-  ``collective-permute`` bytes = fetches × an expert's bytes; a
-  one-device server keeps no peer context;
+  ``collective-permute`` bytes = fetches × an expert's bytes; and against
+  the reference's one-device ``ZipServer`` on the same store and tokens:
+  routes equal, logits within MAX_REL; a one-device server keeps no peer
+  context;
 * corruption + a killed worker + failed peer links together: outputs
   stay bit-exact and the failures are counted;
 * parity with the reference where it runs in-process: ``LinkProfiler``'s
-  numbers on one ``record`` sequence, ``PEER_STACK``'s order and costs,
-  and a hierarchical cache over ``PEER_STACK`` on a seeded trace.  The
-  reference's own peer tests fail under the installed JAX, so the
-  engine and the server are held to the port's one-device runs.
+  numbers on one ``record`` sequence, ``plan_peer_shards`` on seeded
+  shard statistics, ``PEER_STACK``'s order and costs, and a hierarchical
+  cache over ``PEER_STACK`` on a seeded trace.  The reference's own peer
+  tier does not run under the installed JAX (its mesh tests fail), so
+  the mesh-4 server is held to the reference's one-device server, which
+  the peer tier must not change.
 
-Tolerances: every comparison is exact (bits, counts, bytes).
+Tolerances: exact (bits, counts, bytes, routes), except the port's logits
+against the reference's: within MAX_REL (2%) of the largest |logit|, the
+tolerance of every cross-package server test (the packages add the expert
+GEMMs and the combine in other orders).
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -31,14 +40,20 @@ import pytest
 import torch
 
 import repro.core.cache as ref_cache
+import repro.models.moe as ref_moe
 import repro.core.tiers as ref_tiers
 import repro.core.workload as ref_workload
+from repro.core.planner import PlanConsts as RefConsts
+from repro.core.planner import plan_peer_shards as ref_plan_peer_shards
 from repro.core.profiles import LinkProfiler as RefLinkProfiler
+from repro.core.store import build_store as ref_build_store
+from repro.serving.zipserve import ZipServer as RefZipServer
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import bitfield
 from repro_torch.core.cache import HierarchicalCache
 from repro_torch.core.engine import ZipMoEEngine
 from repro_torch.core.faults import FaultPlan, FetchError
+from repro_torch.core.planner import PlanConsts, plan_peer_shards
 from repro_torch.core.profiles import LinkProfiler
 from repro_torch.core.slab import PeerSlabMesh, SlotRef
 from repro_torch.core.store import ExpertStore, build_store
@@ -46,7 +61,9 @@ from repro_torch.core.tiers import DEFAULT_STACK, PEER_STACK, peer_stack
 from repro_torch.core.workload import FreqTracker
 from repro_torch.distributed.collectives import CollectiveLedger
 from repro_torch.models import init_params
+from repro_torch.models.moe import route
 from repro_torch.serving.zipserve import ZipServer
+from test_torch_models import assert_greedy_agrees, both_params, serve_greedy
 
 ROWS = ["cpu"] * 4
 SHAPES = {"w_gate": (8, 16), "w_up": (8, 16), "w_down": (16, 8)}
@@ -181,15 +198,36 @@ def test_engine_peer_serving(setup, device_cache):
             ref = store.load_group((0, e))
             for name, v in out[e].items():
                 assert np.array_equal(_bits(v), ref[name]), (e, name)
-        # per-device planning solves peer shard grants
-        eng.configure_planner(2e6, initial_plan=False)
+        # per-device planning: each row's grant is what the REFERENCE's
+        # solver gives that row's shard alone under the row budget the
+        # layer was given; the budgets split the per-device budget
+        budget = 2e6
+        eng.configure_planner(budget, initial_plan=False)
         eng.replan("test")
-        plan = eng.planner.plans[0]
         caps = eng.peer.dev_caps.get(0)
-        assert caps is not None and len(caps) == 4
-        assert sum(caps) == plan.sizes["P"], (caps, plan.sizes)
+        row_budget = eng.peer.row_budgets[0]
+        full = eng._bytes_per_state(0)["F"]
+        consts = RefConsts(**dataclasses.asdict(eng.plan_consts(0)))
+        assert caps == ref_plan_peer_shards(eng._peer_shard_stats(0),
+                                            row_budget, full, consts)
+        assert caps != eng._even_dev_caps(sum(caps)), caps  # shard-aware
+        assert all(c * full <= row_budget for c in caps), (caps, row_budget)
+        assert sum(eng.peer.row_budgets.values()) <= budget * (1 + 1e-12)
         assert eng.plan_consts(0).peer == eng.peer.link.p_time(
             store.groups[(0, 2)].full_bytes) > 0
+        # the slab admits under those grants: a row grows only up to its
+        # grant (a shrunk grant gates new admissions, it evicts nothing)
+        slab = eng.peer.slabs[0]
+        assert slab.dev_caps == [min(slab.capacity, c) for c in caps]
+
+        def rows():
+            return [sum(1 for r, _ in slab.slot_of.values() if r == dev)
+                    for dev in range(4)]
+        before = rows()
+        for sel in ([0, 1, 6, 7], [1, 2, 6, 7], [0, 5, 6, 7], [0, 1, 6, 7]):
+            eng.fetch_experts(0, sel)
+        assert all(a <= max(c, b) for a, b, c in zip(rows(), before, caps)), \
+            (rows(), before, caps)
     finally:
         eng.shutdown()
 
@@ -211,38 +249,70 @@ def test_engine_one_device_has_no_peer(setup):
 # ---------------------------------------------------------------------------
 # the server
 # ---------------------------------------------------------------------------
-def _serve(cfg, params, d, mesh_devices, device_cache, n=8):
-    kw = {"peer_devices": ["cpu"] * mesh_devices} if mesh_devices > 1 else {}
-    zs = ZipServer(params, cfg, d, L=2, mesh_devices=mesh_devices,
-                   pool_sizes={"F": 2, "C": 2, "S": 2, "E": 2},
-                   mem_budget=2e6, replan_every=4,
-                   device_cache=device_cache, device="cpu", **kw)
-    B, S = 2, 8
-    caches = zs.init_cache(B, S + n)
-    tok = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (B, 1)))
-    logits = []
+@pytest.fixture(scope="module")
+def both(tmp_path_factory):
+    """Both packages' parameters from one seed, and a store the reference
+    built, so the reference's one-device server reads the same bytes."""
+    jcfg, jparams, cfg, params = both_params()
+    d = str(tmp_path_factory.mktemp("store_peer_ref"))
+    ref_build_store(jparams, jcfg, d, k_shards=4)
+    return jcfg, jparams, cfg, params, d
+
+
+SERVE_KW = dict(L=2, pool_sizes={"F": 2, "C": 2, "S": 2, "E": 2},
+                mem_budget=2e6, replan_every=4)
+STEPS = 8
+
+
+def _record_routes(monkeypatch, cls, route_fn, out):
+    """Wrap ``cls._zip_moe_ffn`` to append each step's (layer, sorted
+    top-k ids [B, S, k]) to `out`."""
+    orig = cls._zip_moe_ffn
+
+    def recording(self, lp, x, layer_idx, owners=None):
+        _, ti, _ = route_fn(lp["ffn"]["router"], x, self.cfg)
+        out.append((layer_idx, np.sort(np.asarray(ti), -1)))
+        return orig(self, lp, x, layer_idx, owners)
+
+    monkeypatch.setattr(cls, "_zip_moe_ffn", recording)
+
+
+def _serve(zs, vocab, feed=None):
+    """Greedy-decode STEPS tokens; the server's logits (f32 bits of its
+    bf16 logits), tokens, peer summary, peer fetch sizes, and whether it
+    kept the one-device stack."""
     try:
-        for i in range(n):
-            lg, caches = zs.decode_step(tok, caches, S + i)
-            logits.append(lg.view(torch.int16).numpy().copy())
-            tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
-        ps = zs.peer_summary()
+        lg, tok = serve_greedy(zs, vocab, STEPS, feed=feed)
         eng = zs.engine
+        ps = zs.peer_summary()
         nbytes = {s.expert_nbytes() for s in eng.peer.slabs.values()
                   if s is not None} if eng.peer is not None else set()
         one_dev = (eng.peer is None, eng.stack is DEFAULT_STACK)
     finally:
         zs.close()
-    return logits, ps, nbytes, one_dev
+    return lg, tok, ps, nbytes, one_dev
 
 
 @pytest.mark.parametrize("device_cache", [False, True])
-def test_zipserver_mesh_bitexact_and_link_served(setup, device_cache):
-    cfg, params, d = setup
-    base, base_ps, _, one_dev = _serve(cfg, params, d, 1, device_cache)
+def test_zipserver_mesh_bitexact_and_link_served(both, monkeypatch,
+                                                 device_cache):
+    """Mesh 4 against mesh 1 within the port (bits), and against the
+    reference's one-device server on the same store and token trace: every
+    route equal, logits within MAX_REL of the largest |logit| and the same
+    greedy tokens wherever the logits decide them."""
+    jcfg, jparams, cfg, params, d = both
+    kw = dict(SERVE_KW, device_cache=device_cache)
+    mine, theirs = [], []
+    _record_routes(monkeypatch, ZipServer,
+                   lambda w, x, c: [t.numpy() for t in route(w, x, c)], mine)
+    _record_routes(monkeypatch, RefZipServer, ref_moe.route, theirs)
+    base, _, base_ps, _, one_dev = _serve(
+        ZipServer(params, cfg, d, device="cpu", **kw), cfg.vocab_size)
     assert base_ps == {"enabled": False} and one_dev == (True, True)
-    mesh, ps, nbytes, _ = _serve(cfg, params, d, 4, device_cache)
+    n_one = len(mine)
+    mesh, tok, ps, nbytes, _ = _serve(
+        ZipServer(params, cfg, d, device="cpu", mesh_devices=4,
+                  peer_devices=ROWS, **kw), cfg.vocab_size)
     # the peer tier served traffic over the link...
     assert ps["enabled"] and ps["served"] > 0, ps
     n_fetch = ps["collective_ops"]["collective-permute"]
@@ -250,9 +320,18 @@ def test_zipserver_mesh_bitexact_and_link_served(setup, device_cache):
     assert ps["collective_bytes"] == {
         "collective-permute": n_fetch * nbytes.pop()}, ps
     assert ps["link"]["n_samples"] == n_fetch
-    # ...and the logits are bit-identical to the one-device run
-    for a, b in zip(base, mesh):
-        assert np.array_equal(a, b)
+    # ...the logits are bit-identical to the one-device run...
+    assert np.array_equal(base.view(np.uint32), mesh.view(np.uint32))
+    # ...and agree with the reference's one-device server fed the same
+    # tokens, every expert routed the same
+    ref, _, _, _, _ = _serve(
+        RefZipServer(jparams, jcfg, d, mesh_devices=1, **kw),
+        cfg.vocab_size, feed=tok)
+    ours = mine[n_one:]
+    assert len(ours) == len(theirs) == STEPS * cfg.n_layers
+    for i, ((la, ia), (lb, ib)) in enumerate(zip(ours, theirs)):
+        assert la == lb and np.array_equal(ia, ib), (i, la, ia, ib)
+    assert_greedy_agrees(mesh, tok, ref)
 
 
 def test_zipserver_peer_options(setup):
@@ -352,6 +431,29 @@ def test_link_profiler_matches_reference():
             assert ours.p_time(q) == theirs.p_time(q)
     assert ours.summary() == theirs.summary()
     assert ours.n_samples > 0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plan_peer_shards_matches_reference(seed):
+    """The per-device solver on seeded shard statistics (a hot shard, cold
+    ones, an empty one) and budgets from none to several experts a row."""
+    rng = np.random.default_rng(seed)
+    shards = [np.sort(rng.zipf(1.5, 6).astype(np.float64) * w)[::-1]
+              for w in rng.permutation([0.0, 0.05, 0.3, 1.0])] \
+        + [np.zeros(0)]
+    consts = dict(u=float(rng.uniform(1e-4, 1e-3)),
+                  v=float(rng.uniform(1e-5, 1e-4)),
+                  c=float(rng.uniform(1e-4, 1e-3)), L=4, K=4, n_tensors=3,
+                  peer=float(rng.uniform(1e-5, 1e-3)))
+    full = 17_301_504.0
+    granted = 0
+    for n in (0.5, 1, 3, 7):
+        ours = plan_peer_shards(shards, n * full, full, PlanConsts(**consts))
+        theirs = ref_plan_peer_shards(shards, n * full, full,
+                                      RefConsts(**consts))
+        assert ours == theirs, (n, ours, theirs)
+        granted += sum(ours)
+    assert granted > 0
 
 
 def test_peer_stack_matches_reference():

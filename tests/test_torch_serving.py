@@ -482,10 +482,11 @@ def test_cli_modes(capsys, mode, flags, lines):
     assert "FAILED" not in out
 
 
-def test_cli_refuses_mesh(capsys):
+def test_cli_refuses_mesh(capsys, monkeypatch):
     """``--mesh 4`` on four ``cpu`` rows serves and prints the ``peer:``
     line with link-served experts; ``--mesh 2`` alone needs two cards and
-    exits non-zero, naming the cards it found."""
+    exits non-zero, naming the cards it found (none: the test hides any
+    card this host may have)."""
     from repro_torch.launch.serve import main
     main(CLI + ["--mode", "zipmoe", "--device-cache", "--mesh", "4",
                 "--peer-devices", "cpu,cpu,cpu,cpu"])
@@ -495,10 +496,29 @@ def test_cli_refuses_mesh(capsys):
     fields = dict(kv.split("=") for kv in peer[0].split()[1:])
     assert int(fields["served"]) > 0 and \
         int(fields["collective_bytes"]) > 0, peer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(SystemExit) as ei:
         main(CLI + ["--mode", "zipmoe", "--mesh", "2"])
     assert ei.value.code != 0
-    assert "0 are visible (none)" in str(ei.value.code)
+    assert "needs 2 CUDA devices but 0 are visible (none)" in \
+        str(ei.value.code)
+
+
+def test_cli_mesh_rows_must_start_on_the_compute_device(monkeypatch):
+    """With two cards visible, ``--mesh 2 --device cpu`` puts the first
+    row on ``cuda:0`` while the model computes on the CPU: the CLI exits
+    non-zero naming both, before it builds anything."""
+    from repro_torch.launch.serve import main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "card")
+    for first, extra in (("cuda:0", []),
+                         ("cuda:1", ["--peer-devices", "cuda:1,cpu"])):
+        with pytest.raises(SystemExit) as ei:
+            main(CLI + ["--mode", "zipmoe", "--mesh", "2"] + extra)
+        assert f"peer device {first} is not the compute device cpu" in \
+            str(ei.value.code), ei.value.code
 
 
 def test_routing_trace_matches_reference(models, monkeypatch):
