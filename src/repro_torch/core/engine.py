@@ -105,7 +105,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import bitfield, checkz
+from repro_torch.core import bitfield, checkz, spans
 from repro_torch.core.cache import HierarchicalCache, LiveFlatCache, pool_summary
 from repro_torch.core.faults import (FetchError, FetchTimeout, PeerLinkError,
                                      WorkerKilled)
@@ -173,7 +173,8 @@ class _FetchJob:
     throughout: one block list may carry the same expert id for two
     different layers."""
 
-    def __init__(self, seq: int, parts: List[Tuple[int, List[int], List[int]]]):
+    def __init__(self, seq: int, parts: List[Tuple[int, List[int], List[int]]],
+                 t_submit: float):
         # parts: ordered [(layer, selected, predicted)]; demand (selected)
         # may only appear in the first part — result() waits one layer's
         # demand set, never a union across layers
@@ -187,7 +188,9 @@ class _FetchJob:
             for e in list(sel) + list(pred)]
         self.speculative = not self.demand_keys   # pure-prediction job
         self.last_demand_io_blk = -1   # last block index with demand I/O
-        self.t_submit = time.perf_counter()
+        self.t_submit = t_submit   # the engine.submit span's start
+        self.span_id = 0           # that span (0: recorder off)
+        self.step = 0              # its step
         self.t_ready: Optional[float] = None
         self.t_demand_ready: Optional[float] = None
         self.tasks: List[Task] = []
@@ -345,7 +348,9 @@ class FetchHandle:
                     raise FetchTimeout(
                         f"fetch job {job.seq} subset {sorted(want)} "
                         f"incomplete after {dl}s")
-                eng._cv.wait(0.1)
+                eng.subset_waits += 1
+                if not eng._cv.wait(0.1):      # no notify in 0.1 s
+                    eng.subset_wait_timeouts += 1
         self.wait_s = time.perf_counter() - t0
         out, stats = eng._collect(job, sorted(want))
         return self._flatten(out), stats
@@ -517,6 +522,14 @@ class ZipMoEEngine:
         self.fallback_loads = 0                    # guarded-by: _cv
         self.peer_link_failures = 0                # guarded-by: _cv
         self.failed_experts = 0                    # guarded-by: _cv
+        # result_subset's condition waits, and those that ran out their
+        # 0.1 s with no notify (a missed wake-up: should stay 0)
+        self.subset_waits = 0                      # guarded-by: _cv
+        self.subset_wait_timeouts = 0              # guarded-by: _cv
+        # single-writer: decode thread (submit_steps): jobs, and jobs that
+        # finished inside submit_steps (every tensor an F hit)
+        self.jobs_submitted = 0
+        self.jobs_pure_hit = 0
         # per-worker-slot generation counters: the watchdog bumps a slot's
         # gen when replacing its thread, and an abandoned thread exits at
         # its next loop top instead of double-draining the queues
@@ -709,10 +722,13 @@ class ZipMoEEngine:
         WITHOUT downloading it — the slab write / GEMM consume it in
         place."""
         n = int(np.prod(shape))
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
+        sp = spans.span("engine.splice", start=t0)
         out = recover_bf16_device(exp, sm, shape, self.device)
         self._sync()     # host-sync-ok: timed splice, off decode thread
-        dt = time.perf_counter() - t0
+        t1 = time.perf_counter_ns()
+        sp.close(t1)
+        dt = (t1 - t0) / 1e9
         with self._cv:
             self.h2d_bytes += 2 * n
             self.splice_s += dt
@@ -729,8 +745,9 @@ class ZipMoEEngine:
         module docstring).  Returns a :class:`DevicePlanes` placeholder
         holding the uploaded planes; ``_collect``/``_reconcile_slab``
         resolve it to a SlotRef."""
-        exp_d = host_u8(exp).to(self.device)
-        sm_d = host_u8(sm).to(self.device)
+        with spans.span("engine.upload"):
+            exp_d = host_u8(exp).to(self.device)
+            sm_d = host_u8(sm).to(self.device)
         with self._cv:
             self.h2d_bytes += exp_d.numel() + sm_d.numel()
         return DevicePlanes(exp=exp_d, sm=sm_d, shape=tuple(shape))
@@ -740,10 +757,13 @@ class ZipMoEEngine:
         device tensor — the fused-admit fallback whenever no slab slot can
         take the planes (slab overflow, peer demotion, flat mode).  Charged
         to the engine splice counters like any other device splice."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
+        sp = spans.span("engine.splice", start=t0)
         out = splice_planes_device(dp.exp, dp.sm, dp.shape)
         self._sync()     # host-sync-ok: timed splice, off hot loop
-        dt = time.perf_counter() - t0
+        t1 = time.perf_counter_ns()
+        sp.close(t1)
+        dt = (t1 - t0) / 1e9
         with self._cv:
             self.splice_s += dt
             self.splice_ops += 1
@@ -1535,9 +1555,12 @@ class ZipMoEEngine:
         """Host↔device weight-traffic telemetry: bytes uploaded for plane
         recovery / host-array GEMM staging (``h2d_bytes``), bytes downloaded
         for F→S demotions (``d2h_bytes``), device-splice wall time, and slab
-        occupancy.  A fully cache-hit decode step must add zero to
-        ``h2d_bytes`` in device_cache mode — the regression test's
-        acceptance criterion."""
+        occupancy; and the decode thread's round trips to the workers: jobs
+        submitted, jobs that finished inside ``submit_steps``
+        (``jobs_pure_hit``), ``result_subset``'s condition waits and those
+        that ran out their 0.1 s (``subset_wait_timeouts``).  A fully
+        cache-hit decode step must add zero to ``h2d_bytes`` in
+        device_cache mode — the regression test's acceptance criterion."""
         slabs = [s for s in self._slabs.values() if s is not None]
         with self._cv:   # counters are written by the io/dec workers
             return {
@@ -1554,6 +1577,10 @@ class ZipMoEEngine:
                 "slab_writes": sum(s.writes for s in slabs),
                 "slab_resident": sum(len(s.slot_of) for s in slabs),
                 "slab_bytes": sum(s.nbytes() for s in slabs),
+                "jobs_submitted": self.jobs_submitted,
+                "jobs_pure_hit": self.jobs_pure_hit,
+                "subset_waits": self.subset_waits,
+                "subset_wait_timeouts": self.subset_wait_timeouts,
             }
 
     # ------------------------------------------------------------------
@@ -1620,7 +1647,17 @@ class ZipMoEEngine:
         pinned against eviction until their admission; predicted ids are NOT
         recorded (mispredictions must not feed the workload model) — the
         serving layer records true accesses via :meth:`note_access`.
+
+        The ``engine.submit`` span covers the call; its start is the job's
+        ``t_submit``, and a job that finishes here (every tensor an F hit)
+        ends it with its ``t_ready``.  Worker spans of the job name it as
+        their parent.
         """
+        t0 = time.perf_counter_ns()
+        with spans.span("engine.submit", start=t0) as sub:
+            return self._submit_steps(parts, t0, sub)
+
+    def _submit_steps(self, parts, t0: int, sub) -> FetchHandle:
         norm: List[Tuple[int, List[int], List[int]]] = []
         p_in: List[Optional[Dict[int, float]]] = []
         for pi, (layer, selected, predicted, *rest) in enumerate(parts):
@@ -1640,7 +1677,9 @@ class ZipMoEEngine:
         layers_seen = [l for l, _, _ in norm]
         assert len(set(layers_seen)) == len(layers_seen), \
             f"duplicate layers in one submission: {layers_seen}"
-        job = _FetchJob(next(self._seq), norm)
+        job = _FetchJob(next(self._seq), norm, t0 / 1e9)
+        job.span_id, job.step = sub.id, sub.step
+        self.jobs_submitted += 1
         demand = job.demand_keys
         for pi, (layer, sel, pred) in enumerate(norm):
             if sel:
@@ -1756,8 +1795,11 @@ class ZipMoEEngine:
             job.t_demand_ready = time.perf_counter()
             job.demand_ev.set()
         if job.n_done == job.n_total:            # pure F-pool hit: no work
-            job.t_ready = time.perf_counter()
+            t1 = time.perf_counter_ns()
+            job.t_ready = t1 / 1e9
             job.done_ev.set()
+            self.jobs_pure_hit += 1
+            sub.close(t1)
             return FetchHandle(self, job)
 
         with self._cv:
@@ -1840,7 +1882,9 @@ class ZipMoEEngine:
                 with self._cv:
                     if (t.uid, k) in job.e_data:   # watchdog-requeue dedup
                         continue
-                data = self.store.read_e((l, e), tidx, k)
+                with spans.adopt(job.span_id, job.step, l, e), \
+                        spans.span("engine.io.read"):
+                    data = self.store.read_e((l, e), tidx, k)
                 with self._cv:
                     job.stats.io_bytes += len(data)
                     job.e_data[(t.uid, k)] = data
@@ -1863,7 +1907,9 @@ class ZipMoEEngine:
             if not have:
                 if self.faults is not None:
                     self.faults.worker("io")
-                data = self.store.read_sm((l, e), tidx)
+                with spans.adopt(job.span_id, job.step, l, e), \
+                        spans.span("engine.io.read"):
+                    data = self.store.read_sm((l, e), tidx)
                 with self._cv:
                     job.stats.io_bytes += len(data)
                     job.sm_data[t.uid] = data
@@ -1930,7 +1976,10 @@ class ZipMoEEngine:
                 # preallocated plane — concurrent workers never overlap, and
                 # _finish_tensor consumes the plane without a concatenate
                 try:
-                    self.store.decompress_e_into((l, e), tidx, k, data, buf)
+                    with spans.adopt(job.span_id, job.step, l, e), \
+                            spans.span("engine.decompress"):
+                        self.store.decompress_e_into((l, e), tidx, k, data,
+                                                     buf)
                     ok = True
                 except Exception as dec_exc:
                     ok = self._dec_recover(job, t, k, buf, dec_exc)
@@ -2102,7 +2151,8 @@ class ZipMoEEngine:
         if exp is None:
             return        # duplicate claim after a watchdog requeue: done
         tm = self.store.groups[(l, e)].tensors[tidx]
-        arr = self.recover(exp, job.sm_data[u], tm.shape)
+        with spans.adopt(job.span_id, job.step, l, e):
+            arr = self.recover(exp, job.sm_data[u], tm.shape)
         self._mark_tensor_done(job, t, arr)
 
     def _finish_tensor_direct(self, job: _FetchJob, t: Task, arr):
@@ -2151,7 +2201,16 @@ class ZipMoEEngine:
         :class:`FetchError` after all cache bookkeeping; without it
         (spec_result / background drains) failures are dropped and
         counted once per key in ``spec_drops``.
+
+        Spans: ``engine.collect`` over the call, ``collect.assemble``,
+        ``collect.admit`` and ``collect.reconcile`` (the peer and slab
+        reconciles and the DevicePlanes fix-up) inside it.
         """
+        with spans.span("engine.collect"):
+            return self._collect_phase(job, subset, strict)
+
+    def _collect_phase(self, job: _FetchJob, subset, strict: bool):
+        sp = spans.span("collect.assemble")
         want = set(subset)
         requested = set(subset)        # incl. failed keys (unpin below)
         with self._cv:
@@ -2180,6 +2239,8 @@ class ZipMoEEngine:
                     job.done_tensors[(l, e, tidx)] = v
                 w[tm.name] = v
             out[(l, e)] = w
+        sp.close()
+        sp = spans.span("collect.admit")
         for (l, e) in subset:
             cache = self.caches[l]
             if (l, e) in job.collected and \
@@ -2216,6 +2277,8 @@ class ZipMoEEngine:
                 # hierarchical path handles this inside the demote hook)
                 continue
             cache.admit(e, pl)
+        sp.close()
+        sp = spans.span("collect.reconcile")
         # peer reconcile runs FIRST: an F->P demotion's payload may carry
         # device-slab SlotRefs, which must be read into the peer row before
         # the slab reconcile frees the leaver's slot (staling the refs)
@@ -2256,6 +2319,7 @@ class ZipMoEEngine:
                     w[tm.name] = v
                     with self._cv:
                         job.done_tensors[(l, e, tidx)] = v
+        sp.close()
         # release this job's own demand pins exactly once per expert (pins
         # are refcounted: a step's independent pin on the same expert, taken
         # via pin_experts, survives this release) — failed keys included,

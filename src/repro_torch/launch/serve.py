@@ -27,7 +27,10 @@ store holds them, nothing is fetched).
                       --arrival-trace replays offsets (e.g. ``0,0.05,0.1``),
                       --static-batch serves the epoch discipline instead
                       (the static-batch baseline).  Prints TTFT/TPOT/queue-
-                      delay percentiles and the per-request table.
+                      delay percentiles and the per-request table;
+                      --spans also the ``spans:`` line, the host time of
+                      each span of the decode step (``core/spans``), ms
+                      per step.
 
 Cache knobs (§3.4): --mem-budget BYTES (live pool planning; --replan-every,
 --plan-step, --budget-split), --pool-sizes F,C,S,E, --cache-mode flat
@@ -60,6 +63,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.core import spans
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.store import build_store
 from repro_torch.device import resolve_device, resolve_peer_devices
@@ -158,6 +162,9 @@ def parse_args(argv=None):
                     help="comma-separated arrival offsets in seconds, one "
                          "per request (cycled), replayed from serve start; "
                          "e.g. ``0,0.05,0.1``")
+    ap.add_argument("--spans", action="store_true",
+                    help="zipmoe-batch: record the decode step's spans and "
+                         "print their host time per step (the spans: line)")
     ap.add_argument("--static-batch", action="store_true",
                     help="zipmoe-batch: use the epoch discipline (bucket, "
                          "prefill together, decode in lockstep) instead of "
@@ -314,7 +321,12 @@ def serve_batch(args, cfg, zs, rng):
     for i in range(args.requests):
         srv.submit(rng.integers(0, cfg.vocab_size, args.prompt_len),
                    args.max_new, arrival_s=arrivals[i % len(arrivals)])
-    srv.run()
+    if args.spans:
+        spans.enable()
+    try:
+        srv.run()
+    finally:
+        spans.disable()
     print("metrics:", srv.metrics())
     for rid, d in sorted(srv.request_summary().items()):
         parts = []
@@ -332,6 +344,12 @@ def serve_batch(args, cfg, zs, rng):
     print("cache:", srv.cache_summary())
     n_steps = max(1, len(zs.stats) // max(1, len(zs._moe_layers)))
     print_transfer(zs, n_steps)
+    if args.spans:
+        split = spans.split(spans.take())
+        print("spans:", " ".join(f"{k}={v:.3f}" if k != "steps"
+                                 else f"steps={v}"
+                                 for k, v in split.items()),
+              f"dropped={spans.dropped()}")
 
 
 def serve_steps(args, cfg, zs, rng):

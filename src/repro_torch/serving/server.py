@@ -24,12 +24,15 @@ Two serving disciplines:
 
 API:
   Request      — one prompt and its accounting (``ttft``, ``tpot_s``,
-                 ``queue_delay_s``, ``output``, optional per-token
+                 ``queue_delay_s``, ``output``, the host time each output
+                 token reached the host, ``token_s``, optional per-token
                  ``logits``).
   BatchServer  — ``submit(prompt, max_new_tokens, arrival_s=..,
                  eos_token=..) -> rid``; ``run()`` serves the queue;
-                 ``metrics()`` aggregates TTFT / TPOT / queue-delay
-                 percentiles and throughput plus, on the ZipMoE path, the
+                 ``metrics()`` aggregates TTFT (from the time a request
+                 was due: submitted, or its arrival offset if later) /
+                 TPOT / inter-token-gap / queue-delay percentiles and
+                 throughput plus, on the ZipMoE path, the
                  engine's ``overlap_*`` / ``cache_*`` telemetry;
                  ``request_summary()`` is the per-request report (cache
                  hit rates included); ``cache_summary()`` the nested cache
@@ -53,6 +56,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import spans
 from repro_torch.core.faults import StepFault
 from repro_torch.models.model import check_supported
 from repro_torch.serving.generate import (make_generator, make_steps,
@@ -69,10 +73,12 @@ class Request:
     eos_token: Optional[int] = None
     record_logits: bool = False   # keep each output token's logits (f32)
     submitted: float = field(default_factory=time.perf_counter)
+    due: Optional[float] = None   # max(submitted, run start + arrival_s)
     admitted: Optional[float] = None
-    ttft: Optional[float] = None
+    ttft: Optional[float] = None  # first token - due (- submitted: epoch)
     done: Optional[float] = None
     output: List[int] = field(default_factory=list)
+    token_s: List[float] = field(default_factory=list)  # per output token
     logits: List[np.ndarray] = field(default_factory=list)
     queue_delay_s: Optional[float] = None   # admission - eligibility
     error: Optional[str] = None   # set when retired by a StepFault
@@ -80,9 +86,9 @@ class Request:
     @property
     def tpot_s(self) -> Optional[float]:
         """Mean time per output token after the first token."""
-        if self.ttft is None or self.done is None or len(self.output) < 2:
+        if not self.token_s or self.done is None or len(self.output) < 2:
             return None
-        return (self.done - (self.submitted + self.ttft)) / (len(self.output) - 1)
+        return (self.done - self.token_s[0]) / (len(self.output) - 1)
 
 
 @dataclass
@@ -196,7 +202,8 @@ class BatchServer:
             self.queue.popleft()
             now = time.perf_counter()
             r.admitted = now
-            r.queue_delay_s = now - max(r.submitted, t0 + r.arrival_s)
+            r.due = max(r.submitted, t0 + r.arrival_s)
+            r.queue_delay_s = now - r.due
             gen = (make_generator(self.device,
                                   request_seed(self.seed, r.rid))
                    if self.temperature > 0 else None)
@@ -212,7 +219,9 @@ class BatchServer:
     def _sample_rows(self, lg, active: List[_Slot]):
         """The step's sampled token of every row that is past its prompt
         (others get -1), and the rows' f32 logits when any row records
-        them — each brought to the host once for the whole batch."""
+        them — each brought to the host once for the whole batch.  Spans:
+        ``server.sample``, and ``server.sample.sync`` over the readbacks."""
+        sp = spans.span("server.sample")
         rows = lg[:, -1]
         sampling = [b for b, s in enumerate(active)
                     if s.pos + 1 >= len(s.req.prompt)]
@@ -225,68 +234,89 @@ class BatchServer:
                 toks[b] = sample_tokens(rows[b:b + 1], active[b].gen,
                                         self.temperature)[0]
         logits = None
+        sync = spans.span("server.sample.sync")
         if any(active[b].req.record_logits for b in sampling):
             logits = rows.float().cpu().numpy()
-        return toks.cpu().numpy(), logits
+        toks = toks.cpu().numpy()
+        sync.close()
+        sp.close()
+        return toks, logits
 
     def _run_continuous(self) -> List[Request]:
+        """The serving loop.  Spans (``core/spans``): ``server.step`` per
+        step (a new step id; the rows' request ids), with ``server.admit``,
+        ``kv.gather``, ``kv.commit``, ``server.sample`` and
+        ``server.retire`` inside it; the step's model call
+        (``zs.decode_rows``) nests between the gather and the commit."""
         pool = self.pool = self._make_pool()
         active: List[_Slot] = []
         t0 = time.perf_counter()
         while self.queue or active:
+            with spans.step_span("server.step") as st:
+                self._step(active, pool, t0, st)
+        return self.finished
+
+    def _step(self, active: List[_Slot], pool: KVPagePool, t0: float, st):
+        """One step of the serving loop (see ``_run_continuous``); `st`
+        is its ``server.step`` span."""
+        with spans.span("server.admit"):
             self._admit(active, pool, t0)
-            rids = [s.req.rid for s in active]
-            tokens = torch.as_tensor([[s.next_tok] for s in active],
-                                     dtype=torch.long, device=self.device)
-            positions = np.asarray([s.pos for s in active], np.int64)
+        rids = [s.req.rid for s in active]
+        st.tag(rids)
+        tokens = torch.as_tensor([[s.next_tok] for s in active],
+                                 dtype=torch.long, device=self.device)
+        positions = np.asarray([s.pos for s in active], np.int64)
+        with spans.span("kv.gather"):
             views = pool.gather(rids)  # gen-checked: KV pages, not slab slots
-            try:
-                lg, views = self.zip.decode_rows(tokens, views, positions,
-                                                 owners=rids)
-            except StepFault as f:
-                # retire ONLY the rows whose experts could not be fetched,
-                # then run the step again with the survivors.  Nothing was
-                # committed (the fault fires before commit) and sampling
-                # is keyed per request, so the survivors' trajectories are
-                # those of a fault-free run.
-                bad = {active[b].req.rid for b in f.rows if b < len(active)}
-                if not bad:          # always retire someone, or a
-                    bad = set(rids)  # persistent fault would spin forever
-                now = time.perf_counter()
-                for s in [s for s in active if s.req.rid in bad]:
-                    s.req.error = str(f)
-                    s.req.done = now
-                    self._retire(s, active, pool)
-                continue
-            pool.commit(views, rids, positions)
-            toks, logits = self._sample_rows(lg, active)
+        try:
+            lg, views = self.zip.decode_rows(tokens, views, positions,
+                                             owners=rids)
+        except StepFault as f:
+            # retire ONLY the rows whose experts could not be fetched,
+            # then run the step again with the survivors.  Nothing was
+            # committed (the fault fires before commit) and sampling
+            # is keyed per request, so the survivors' trajectories are
+            # those of a fault-free run.
+            bad = {active[b].req.rid for b in f.rows if b < len(active)}
+            if not bad:          # always retire someone, or a
+                bad = set(rids)  # persistent fault would spin forever
             now = time.perf_counter()
-            retired: List[_Slot] = []
-            for b, s in enumerate(active):
-                r = s.req
-                s.pos += 1
-                if s.pos < len(r.prompt):          # prefill-as-decode
-                    s.next_tok = int(r.prompt[s.pos])
-                    continue
-                tok = int(toks[b])
-                if r.ttft is None:
-                    r.ttft = now - r.submitted
-                r.output.append(tok)
-                if r.record_logits:
-                    r.logits.append(logits[b])
-                s.next_tok = tok
-                if (len(r.output) >= r.max_new_tokens
-                        or (r.eos_token is not None and tok == r.eos_token)):
-                    r.done = now
-                    retired.append(s)
-            for s in retired:                      # free pages, backfill next
+            for s in [s for s in active if s.req.rid in bad]:
+                s.req.error = str(f)
+                s.req.done = now
+                self._retire(s, active, pool)
+            return
+        with spans.span("kv.commit"):
+            pool.commit(views, rids, positions)
+        toks, logits = self._sample_rows(lg, active)
+        now = time.perf_counter()
+        retired: List[_Slot] = []
+        for b, s in enumerate(active):
+            r = s.req
+            s.pos += 1
+            if s.pos < len(r.prompt):          # prefill-as-decode
+                s.next_tok = int(r.prompt[s.pos])
+                continue
+            tok = int(toks[b])
+            if r.ttft is None:
+                r.ttft = now - r.due
+            r.output.append(tok)
+            r.token_s.append(now)
+            if r.record_logits:
+                r.logits.append(logits[b])
+            s.next_tok = tok
+            if (len(r.output) >= r.max_new_tokens
+                    or (r.eos_token is not None and tok == r.eos_token)):
+                r.done = now
+                retired.append(s)
+        with spans.span("server.retire"):
+            for s in retired:                  # free pages, backfill next
                 self._retire(s, active, pool)
             if not active:
                 # nothing left to hide the speculative tails under: finish
                 # the in-flight prediction jobs so the cache byte
                 # accounting is stable (nothing leaks across an idle gap)
                 self.zip.drain_pending()
-        return self.finished
 
     # -- epoch batching (resident path / static-batch baseline) ----------
     def _take_batch(self) -> List[Request]:
@@ -340,6 +370,7 @@ class BatchServer:
         for b, r in enumerate(batch):
             r.ttft = now - r.submitted
             r.output.append(int(host[b]))
+            r.token_s.append(now)
             if len(r.output) >= r.max_new_tokens:
                 r.done = now
             else:
@@ -354,6 +385,7 @@ class BatchServer:
             for b in list(alive):
                 r = batch[b]
                 r.output.append(int(host[b]))
+                r.token_s.append(now)
                 if len(r.output) >= r.max_new_tokens:
                     r.done = now
                     alive.discard(b)
@@ -365,10 +397,16 @@ class BatchServer:
 
     # -- metrics ---------------------------------------------------------
     def metrics(self) -> Dict[str, float]:
+        """Latency and throughput of the finished requests: TTFT from the
+        time a request was due, TPOT per request, and ``itl_p95_s``, the
+        95th percentile of the gaps between consecutive tokens of one
+        request, every request's gaps pooled."""
         if not self.finished:
             return {}
         ttfts = [r.ttft for r in self.finished if r.ttft is not None]
         tpots = [r.tpot_s for r in self.finished if r.tpot_s is not None]
+        gaps = [b - a for r in self.finished
+                for a, b in zip(r.token_s, r.token_s[1:])]
         qdels = [r.queue_delay_s for r in self.finished
                  if r.queue_delay_s is not None]
         total_toks = sum(len(r.output) for r in self.finished)
@@ -384,6 +422,8 @@ class BatchServer:
             m["mean_tpot_s"] = float(np.mean(tpots))
             m["tpot_p50_s"] = _pct(tpots, 50)
             m["tpot_p95_s"] = _pct(tpots, 95)
+        if gaps:
+            m["itl_p95_s"] = _pct(gaps, 95)
         if qdels:
             m["queue_delay_p50_s"] = _pct(qdels, 50)
             m["queue_delay_p95_s"] = _pct(qdels, 95)

@@ -110,7 +110,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import bitfield
+from repro_torch.core import bitfield, spans
 from repro_torch.core.engine import FetchHandle, ZipMoEEngine
 from repro_torch.core.faults import FetchError, FetchTimeout, StepFault
 from repro_torch.core.profiles import GemmProfiler
@@ -520,16 +520,31 @@ class ZipServer:
         time the decode thread actually spent waiting on reconstruction —
         only the selected experts are waited on, never a prediction job's
         unused tail.
+
+        Spans: ``moe.acquire`` over the call, with ``acquire.pin``,
+        ``acquire.wait``, ``acquire.drain`` and ``acquire.issue`` inside.
+        With prediction jobs pending, ``acquire.wait`` is exactly the
+        interval blocked_s measures (one pair of clock readings).  With
+        none, ``acquire.issue`` covers the demand job's submission and
+        ``acquire.wait`` its ``result()``, and blocked_s is the job's wall:
+        from its ``engine.submit`` span's start to its demand completion,
+        which falls before ``acquire.wait`` ends.
         """
         ov = self.overlap_stats
+        acq = spans.span("moe.acquire", layer_idx)
         pend = list(self._pending.get(layer_idx, []))
         if not pend:
             # no prediction in flight: everything is demand; the same
             # submission still carries the layer's next-step prediction
+            sp = spans.span("acquire.issue")
             h = self._issue_step(layer_idx, ids, batch)
+            sp.close()
+            sp = spans.span("acquire.wait")
             weights, fstats = h.result()
+            sp.close()
             ov["sync_fetches"] += 1
             ov["blocking_s"] += fstats.wall
+            acq.close()
             return weights, fstats.io_bytes, fstats.wall
         io_bytes = 0
         in_flight = self._in_flight(layer_idx)
@@ -538,8 +553,10 @@ class ZipServer:
         # pin the WHOLE selection for the step (pins are refcounted) and
         # record the access BEFORE any of this step's admissions, so
         # hit/miss telemetry reflects residency at step start
+        sp = spans.span("acquire.pin")
         self.engine.pin_experts(layer_idx, ids)
         self.engine.note_access(layer_idx, covered)
+        sp.close()
         # a misprediction's demand fetch is submitted BEFORE waiting on the
         # prediction jobs: `missing` is disjoint from every in-flight
         # prediction by construction, and the urgent job jumps the I/O
@@ -551,7 +568,8 @@ class ZipServer:
         if h_m is not None and self.prefetch:
             self._pending.setdefault(layer_idx, []).append(
                 (h_m, frozenset(missing)))
-        t0 = time.perf_counter()     # CPU-side submit cost stays excluded
+        t0 = time.perf_counter_ns()  # CPU-side submit cost stays excluded
+        wait = spans.span("acquire.wait", start=t0)
         weights: Dict[int, Dict] = {}
         try:
             remaining = set(covered)
@@ -588,16 +606,23 @@ class ZipServer:
                 weights.update(w_r)
                 io_bytes += fs_r.io_bytes
                 ov["blocking_s"] += fs_r.wall
-            blocked = time.perf_counter() - t0
+            t1 = time.perf_counter_ns()
+            wait.close(t1)
+            blocked = (t1 - t0) / 1e9
             # drain finished prediction jobs AFTER they served this step's
             # coverage; the step pins are still held through the drain, so
             # its admissions can never evict (and free the slab slot of) a
             # selected expert before the FFN consumes it
+            sp = spans.span("acquire.drain")
             io_bytes += self._drain(layer_idx)
+            sp.close()
         finally:
             # on the failure path too: an unreleased step pin would leak
             self.engine.unpin_experts(layer_idx, ids)
+        sp = spans.span("acquire.issue")
         self._issue_step(layer_idx, [], batch)
+        sp.close()
+        acq.close()
         return weights, io_bytes, blocked
 
     def overlap_summary(self) -> Dict[str, float]:
@@ -891,14 +916,19 @@ class ZipServer:
         kernel.  Bit-identical to ``_ffn_ragged``: every GEMM row is one f32
         sum in k order whatever the batching, and the combine is the same
         gather-sum in the same per-token order."""
+        sp = spans.span("moe.csr")
         gather, gates, rows_of = self._gather_by_expert(top_p, top_i, ids)
+        sp.close()
+        sp = spans.span("moe.gemm")
         xg = self._gathered_tokens(x, gather)                # [Ea, C, d]
         self._note_gemm_shape("grouped", *gather.shape)
         eout = self._expert_mlp(
             grouped_expert_gemm, xg, weights, ids,
             lambda name: self._stack_weights(name, weights, ids))
-        return self._combine(x, eout.reshape(-1, x.shape[-1]),
-                             gates.reshape(-1), rows_of)
+        sp.close()
+        with spans.span("moe.combine"):
+            return self._combine(x, eout.reshape(-1, x.shape[-1]),
+                                 gates.reshape(-1), rows_of)
 
     def _ffn_ragged(self, x, top_p, top_i, weights, ids):  # hot-path
         """Slot-indexed ragged grouped FFN — the megakernel hot path.
@@ -907,9 +937,14 @@ class ZipServer:
         count bucketed); the kernel reads each expert's weights straight
         out of the slab buffer by the per-tile slot vector — zero
         weight-copy bytes on the all-slab-resident fast path
-        (``_slab_sources``)."""
+        (``_slab_sources``).  Spans: ``moe.csr`` (the tables),
+        ``moe.gemm`` (the token gather and the three launches),
+        ``moe.combine``."""
+        sp = spans.span("moe.csr")
         gather, gates, tile_row, rows_of = self._gather_by_expert_ragged(
             top_p, top_i, ids, BLOCK_C)
+        sp.close()
+        sp = spans.span("moe.gemm")
         xg = self._gathered_tokens(x, gather)                # [T, d]
         self._note_gemm_shape("ragged", gather.size)
 
@@ -920,7 +955,9 @@ class ZipServer:
         eout = self._expert_mlp(
             sg, xg, weights, ids,
             lambda name: self._slab_sources(name, weights, ids))
-        return self._combine(x, eout, gates, rows_of)
+        sp.close()
+        with spans.span("moe.combine"):
+            return self._combine(x, eout, gates, rows_of)
 
     def _planes_to_device(self, ps: List[BitPlanes]):
         """Upload bit-planes [len(ps), D, F] (u8 exp, u8 sm) and charge
@@ -937,15 +974,20 @@ class ZipServer:
         weights stay u8 bit-planes and ``zip_gemm_batch`` splices them to
         bf16 in registers inside the GEMM, for every active expert of the
         step at once.  Plane uploads are charged to ``h2d_bytes``."""
+        sp = spans.span("moe.csr")
         gather, gates, rows_of = self._gather_by_expert(top_p, top_i, ids)
+        sp.close()
+        sp = spans.span("moe.gemm")
         xg = self._gathered_tokens(x.to(torch.bfloat16), gather)
         self._note_gemm_shape("zip", *gather.shape)
         eout = self._expert_mlp(
             lambda a, pl: zip_gemm_batch(a, *pl), xg, weights, ids,
             lambda name: self._planes_to_device(
                 [weights[e][name] for e in ids]))
-        return self._combine(x, eout.reshape(-1, x.shape[-1]),
-                             gates.reshape(-1), rows_of)
+        sp.close()
+        with spans.span("moe.combine"):
+            return self._combine(x, eout.reshape(-1, x.shape[-1]),
+                                 gates.reshape(-1), rows_of)
 
     def _ffn_zip_loop(self, x, top_p, top_i, weights, ids):
         """Per-expert fused recovery+GEMM (one ``fused_zip_gemm`` launch per
@@ -991,16 +1033,21 @@ class ZipServer:
         while per-request accounting runs on pure residency queries."""
         cfg = self.cfg
         ffn = lp["ffn"]
+        sp = spans.span("moe.route", layer_idx)
         top_p, top_i, _ = route(ffn["router"], x, cfg)       # [B,1,k]
+        sp.close()
+        sp = spans.span("moe.route.sync", layer_idx)
         # host-sync-ok: the router's choice drives host-side scheduling
         ti = top_i.cpu().numpy()
         tp = top_p.float().cpu().numpy()
+        sp.close()
         ids = sorted({int(e) for e in ti.reshape(-1)})
         B = x.shape[0]
         self._last_ids[layer_idx] = ids
         if owners is not None:
-            self._note_request_access(layer_idx, ti.reshape(B, cfg.top_k),
-                                      owners)
+            with spans.span("moe.access", layer_idx):
+                self._note_request_access(layer_idx,
+                                          ti.reshape(B, cfg.top_k), owners)
         # expert-weight transfer attributed to this layer-step (0 on a full
         # cache hit, the whole re-upload on a host-mode hit)
         h2d0 = self.engine.h2d_bytes
@@ -1009,7 +1056,8 @@ class ZipServer:
         if self.prefetch:
             # overlap the next MoE layer's reconstruction with this layer's
             # FFN and the following layers' attention compute
-            self._issue_prefetch(self._next_moe_layer(layer_idx), B)
+            with spans.span("moe.prefetch", layer_idx):
+                self._issue_prefetch(self._next_moe_layer(layer_idx), B)
         t0 = time.perf_counter()
         try:
             weights, io_bytes, blocked_s = self._acquire_experts(
@@ -1047,7 +1095,8 @@ class ZipServer:
                 self.profiler.record(layer_idx, len(ids), cols,
                                      time.perf_counter() - t_ffn)
         if "shared" in ffn:
-            y = y + apply_mlp(ffn["shared"], x, cfg)
+            with spans.span("moe.shared", layer_idx):
+                y = y + apply_mlp(ffn["shared"], x, cfg)
         self.stats.append({"layer": layer_idx, "fetch_s": fetch_s,
                            "blocked_s": blocked_s, "io_bytes": io_bytes,
                            "n_experts": len(ids),
@@ -1107,44 +1156,66 @@ class ZipServer:
         list over the union of all rows' demand and predicted experts, so
         the cache pools, device slabs and live planner serve the whole
         active set as shared multi-tenant resources.  Returns (logits
-        [B, 1, V], caches).  Refuses an encoder-decoder."""
+        [B, 1, V], caches).  Refuses an encoder-decoder.
+
+        Spans (``core/spans``): ``zs.decode_rows`` over the step, with
+        ``zs.embed``, ``zs.attn`` (each layer's norm, sequence mixer and
+        residual: attention, or the Mamba mixer of a hybrid layer),
+        ``zs.mlp`` (a dense FFN layer), ``zs.moe`` (a MoE layer),
+        ``zs.head`` (final norm and LM head) and ``zs.tail`` (request
+        accounting and the step clocks) inside it.  Off, each costs a flag
+        test."""
         self._check_open()
         if self._rows_refusal is not None:
             raise NotImplementedError(self._rows_refusal)
-        cfg = self.cfg
-        p = self.globals
-        tokens = torch.as_tensor(tokens, device=self.device).long()
-        positions = torch.as_tensor(np.asarray(positions, np.int64),
-                                    device=self.device)
-        x = p["embed"]["tok"][tokens]
-        # loop-ok: per-LAYER structure (hot-path bans per-EXPERT loops;
-        # expert work inside goes through the grouped-GEMM kernels)
-        for idx, (lp, cache) in enumerate(zip(self.layers, caches)):
-            h = apply_norm(lp["norm1"], x, cfg)
-            if "mamba" in lp:      # sequence-free: one step per row as is
-                y, _ = mamba_lib.mamba_decode(lp["mamba"], h, cfg,
-                                              cache["ssm"])
-            elif cfg.attn == "mla":
-                y, _ = attn_lib.mla_decode_rows(lp["attn"], h, cfg,
-                                                cache["kv"], positions)
-            else:
-                y, _ = attn_lib.gqa_decode_rows(lp["attn"], h, cfg,
-                                                cache["kv"], positions)
-            x = x + y
-            if "ffn" in lp:
-                h2 = apply_norm(lp["norm2"], x, cfg)
-                if "router" in lp["ffn"]:
-                    x = x + self._zip_moe_ffn(lp, h2, idx, owners=owners)
+        with spans.span("zs.decode_rows"):
+            cfg = self.cfg
+            p = self.globals
+            sp = spans.span("zs.embed")
+            tokens = torch.as_tensor(tokens, device=self.device).long()
+            positions = torch.as_tensor(np.asarray(positions, np.int64),
+                                        device=self.device)
+            x = p["embed"]["tok"][tokens]
+            sp.close()
+            # loop-ok: per-LAYER structure (hot-path bans per-EXPERT loops;
+            # expert work inside goes through the grouped-GEMM kernels)
+            for idx, (lp, cache) in enumerate(zip(self.layers, caches)):
+                sp = spans.span("zs.attn", idx)
+                h = apply_norm(lp["norm1"], x, cfg)
+                if "mamba" in lp:      # sequence-free: one step per row
+                    y, _ = mamba_lib.mamba_decode(lp["mamba"], h, cfg,
+                                                  cache["ssm"])
+                elif cfg.attn == "mla":
+                    y, _ = attn_lib.mla_decode_rows(lp["attn"], h, cfg,
+                                                    cache["kv"], positions)
                 else:
-                    x = x + apply_mlp(lp["ffn"], h2, cfg)
-        x = apply_norm(p["final_norm"], x, cfg)
-        for rid in owners or ():
-            self.req_stats.setdefault(
-                rid, {"accesses": 0, "hits": 0, "steps": 0})["steps"] += 1
-        if self._auto_depth:
-            self._tune_depth()
-        self.engine.note_step()   # cache-window and live-planner step clocks
-        return x @ lm_head_weight(p, cfg), caches
+                    y, _ = attn_lib.gqa_decode_rows(lp["attn"], h, cfg,
+                                                    cache["kv"], positions)
+                x = x + y
+                sp.close()
+                if "ffn" in lp:
+                    if "router" in lp["ffn"]:
+                        with spans.span("zs.moe", idx):
+                            h2 = apply_norm(lp["norm2"], x, cfg)
+                            x = x + self._zip_moe_ffn(lp, h2, idx,
+                                                      owners=owners)
+                    else:
+                        with spans.span("zs.mlp", idx):
+                            h2 = apply_norm(lp["norm2"], x, cfg)
+                            x = x + apply_mlp(lp["ffn"], h2, cfg)
+            with spans.span("zs.head"):
+                x = apply_norm(p["final_norm"], x, cfg)
+                logits = x @ lm_head_weight(p, cfg)
+            with spans.span("zs.tail"):
+                for rid in owners or ():
+                    self.req_stats.setdefault(
+                        rid, {"accesses": 0, "hits": 0,
+                              "steps": 0})["steps"] += 1
+                if self._auto_depth:
+                    self._tune_depth()
+                # cache-window and live-planner step clocks
+                self.engine.note_step()
+            return logits, caches
 
     def request_summary(self) -> Dict[int, Dict[str, float]]:
         """Per-request cache accounting (continuous batching): expert

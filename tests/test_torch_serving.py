@@ -471,6 +471,8 @@ CLI = ["--device", "cpu", "--requests", "2", "--max-new", "2",
                       "--arrival-trace", "0,0.01"],
      ["metrics:", "request[1]:", "request[2]:", "cache:", "overlap:",
       "transfer:", "gemm:", "plan:"]),
+    ("zipmoe-batch", ["--device-cache", "--spans"],
+     ["metrics:", "transfer:", "spans: steps="]),
 ])
 def test_cli_modes(capsys, mode, flags, lines):
     from repro_torch.launch.serve import main
