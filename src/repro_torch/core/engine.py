@@ -196,6 +196,9 @@ class _FetchJob:
         self.tasks: List[Task] = []
         self.blocks: List[List[Task]] = []
         self.metas: Dict[int, Tuple[int, int, int]] = {}  # uid -> (layer, e, tidx)
+        # (layer, e) -> its tensors' uids, tidx ascending (no entry: the
+        # job was a pure F hit and has no tasks)
+        self.uids: Dict[Tuple[int, int], range] = {}
         self.task_by_uid: Dict[int, Task] = {}
         self.prio: Dict[int, int] = {}
         self.urg: Dict[int, int] = {}   # uid -> 0 (demand) / 1 (speculative)
@@ -339,9 +342,9 @@ class FetchHandle:
             def ready():
                 # failed uids never land: treat them as ready so the wait
                 # ends and _collect raises the structured error instead
-                return all(job.metas[t.uid] in job.done_tensors
-                           or t.uid in job.failed_uids
-                           for t in job.tasks if t.expert_key in want)
+                return all(job.metas[u] in job.done_tensors
+                           or u in job.failed_uids
+                           for k in want for u in job.uids.get(k, ()))
             while not (job.done_ev.is_set() or ready()):
                 if dl is not None and time.perf_counter() - t0 > dl:
                     eng.deadline_hits += 1
@@ -530,6 +533,9 @@ class ZipMoEEngine:
         # finished inside submit_steps (every tensor an F hit)
         self.jobs_submitted = 0
         self.jobs_pure_hit = 0
+        # single-writer: decode thread (_collect): admissions of an expert
+        # already in F that would have left the cache as it was
+        self.readmit_skips = 0
         # per-worker-slot generation counters: the watchdog bumps a slot's
         # gen when replacing its thread, and an abandoned thread exits at
         # its next loop top instead of double-draining the queues
@@ -1558,7 +1564,9 @@ class ZipMoEEngine:
         occupancy; and the decode thread's round trips to the workers: jobs
         submitted, jobs that finished inside ``submit_steps``
         (``jobs_pure_hit``), ``result_subset``'s condition waits and those
-        that ran out their 0.1 s (``subset_wait_timeouts``).  A fully
+        that ran out their 0.1 s (``subset_wait_timeouts``), and collected
+        F residents whose re-admission was skipped as a no-op
+        (``readmit_skips``).  A fully
         cache-hit decode step must add zero to ``h2d_bytes`` in
         device_cache mode — the regression test's acceptance criterion."""
         slabs = [s for s in self._slabs.values() if s is not None]
@@ -1581,6 +1589,7 @@ class ZipMoEEngine:
                 "jobs_pure_hit": self.jobs_pure_hit,
                 "subset_waits": self.subset_waits,
                 "subset_wait_timeouts": self.subset_wait_timeouts,
+                "readmit_skips": self.readmit_skips,
             }
 
     # ------------------------------------------------------------------
@@ -1693,6 +1702,8 @@ class ZipMoEEngine:
             # the link wins) fetched synchronously right here, seeding their
             # tensors below exactly like F hits
             self._serve_peer_residents(job)
+        if all(self._holds_full(k, job.payloads[k]) for k in job.expert_keys):
+            return self._pure_hit(job, sub)
 
         # ---- per-key execution-time priorities (tiered classes) ----------
         key_p: Dict[Tuple[int, int], float] = {}
@@ -1743,6 +1754,7 @@ class ZipMoEEngine:
             # shard sizes differ per layer, so the block build prices each
             # layer's chunks at ITS measured u/c/ρ
             u_l, c_l, rho_l = self._layer_costs(l)
+            job.uids[(l, e)] = range(uid, uid + len(g.tensors))
             for tidx, tm in enumerate(g.tensors):
                 st_t = tensor_state(job.payloads[(l, e)], tidx,
                                     len(tm.e_sizes))
@@ -1794,13 +1806,6 @@ class ZipMoEEngine:
         if job.demand_done == job.demand_total:  # demand fully F-cached
             job.t_demand_ready = time.perf_counter()
             job.demand_ev.set()
-        if job.n_done == job.n_total:            # pure F-pool hit: no work
-            t1 = time.perf_counter_ns()
-            job.t_ready = t1 / 1e9
-            job.done_ev.set()
-            self.jobs_pure_hit += 1
-            sub.close(t1)
-            return FetchHandle(self, job)
 
         with self._cv:
             self._jobs[job.seq] = job
@@ -1808,6 +1813,36 @@ class ZipMoEEngine:
                 heapq.heappush(self._dec_ready, item)
             (self._io_spec if job.speculative else self._io_urgent).append(job)
             self._cv.notify_all()
+        return FetchHandle(self, job)
+
+    def _holds_full(self, key: Tuple[int, int], pl: ExpertPayload) -> bool:
+        """Whether `pl` holds every tensor of expert `key` in full (each
+        would be an F task)."""
+        full = pl.full
+        return all(tidx in full
+                   for tidx in range(len(self.store.groups[key].tensors)))
+
+    def _pure_hit(self, job: _FetchJob, sub) -> FetchHandle:
+        """Finish a job whose every tensor is already in full: seed its
+        tensors from the payloads and complete it here, with no task table
+        or block list (nothing would read them: no worker ever sees the
+        job)."""
+        for key in job.expert_keys:
+            full = job.payloads[key].full
+            n = len(self.store.groups[key].tensors)
+            for tidx in range(n):
+                job.done_tensors[key + (tidx,)] = full[tidx]
+            job.n_total += n
+            if key in job.demand_keys:
+                job.demand_total += n
+        job.n_done, job.demand_done = job.n_total, job.demand_total
+        job.t_demand_ready = time.perf_counter()
+        job.demand_ev.set()
+        t1 = time.perf_counter_ns()
+        job.t_ready = t1 / 1e9
+        job.done_ev.set()
+        self.jobs_pure_hit += 1
+        sub.close(t1)
         return FetchHandle(self, job)
 
     # ---- persistent I/O thread -------------------------------------------
@@ -2183,6 +2218,35 @@ class ZipMoEEngine:
             self._cv.notify_all()      # wake result_subset() waiters
 
     # ---- result assembly + cache update (caller's thread) ----------------
+    @staticmethod
+    def _readmit_is_noop(cache, job: _FetchJob, l: int, e: int,
+                         n: int) -> bool:
+        """Whether ``cache.admit(e, payload of job's tensors of (l, e))``
+        would leave `cache` as it is, but for `e` moving to the end of F.
+        It would when `e` is in F and no other pool, its rank still targets
+        F, F is not over its capacity (so re-placing `e` evicts nobody), and
+        the entry's payload is usable and holds no chunks and, for every
+        tensor, the very object the job collects (the admit would store a
+        copy of that payload: the same contents)."""
+        fpool = cache.pools.get("F")
+        ent = fpool.get(e) if fpool is not None else None
+        if ent is None:
+            return False
+        pl = ent.payload
+        if not isinstance(pl, ExpertPayload) or pl.sm or pl.e \
+                or len(pl.full) != n:
+            return False
+        done = job.done_tensors
+        for tidx in range(n):
+            v = pl.full.get(tidx)
+            if v is not done[(l, e, tidx)] or isinstance(v, PeerRef) \
+                    or (isinstance(v, SlotRef) and not v.valid):
+                return False
+        if len(fpool) > cache.cap["F"] or cache.target_pool(e) != "F":
+            return False
+        return not any(e in pool for pool in cache.pools.values()
+                       if pool is not fpool)
+
     def _collect(self, job: _FetchJob, subset: Sequence[Tuple[int, int]],
                  strict: bool = True
                  ) -> Tuple[Dict[Tuple[int, int], Dict[str, np.ndarray]],
@@ -2216,9 +2280,9 @@ class ZipMoEEngine:
         with self._cv:
             failed = {k: job.failed[k] for k in want if k in job.failed}
         want -= set(failed)
-        missing = [job.metas[t.uid] for t in job.tasks
-                   if t.expert_key in want and
-                   job.metas[t.uid] not in job.done_tensors]
+        missing = [job.metas[u] for k in job.expert_keys if k in want
+                   for u in job.uids.get(k, ())
+                   if job.metas[u] not in job.done_tensors]
         assert not missing, f"unreconstructed tensors: {missing}"
         subset = sorted(want)
         out: Dict[Tuple[int, int], Dict[str, np.ndarray]] = {}
@@ -2247,27 +2311,33 @@ class ZipMoEEngine:
                     cache.residency(e) is not CState.M:
                 continue               # still resident: nothing to re-admit
             job.collected.add((l, e))
+            g = self.store.groups[(l, e)]
+            if self.cache_mode != "flat" and \
+                    self._readmit_is_noop(cache, job, l, e, len(g.tensors)):
+                # the admit would pop the entry and put it back as it was:
+                # keep only its one visible effect, the move to F's end
+                # (F's order breaks least_frequent's ties under a budget)
+                fpool = cache.pools["F"]
+                fpool[e] = fpool.pop(e)
+                self.readmit_skips += 1
+                continue
             # build the comprehensive payload (everything this fetch holds)
             # and let admission trim it to the dispatched pool via the
             # _demote_payload fit — payload travels WITH the admit, so a
             # cascade triggered by a later admit can never orphan it
-            g = self.store.groups[(l, e)]
             pl = ExpertPayload()
             pl.full = {tidx: job.done_tensors[(l, e, tidx)]
                        for tidx in range(len(g.tensors))}
             if self.cache_mode != "flat":
-                for t in job.tasks:
-                    if t.expert_key != (l, e):
-                        continue
-                    tidx = job.metas[t.uid][2]
-                    smb = job.sm_data.get(t.uid,
-                                          job.payloads[(l, e)].sm.get(tidx))
+                uids = job.uids.get((l, e))    # None: a pure hit's tensors
+                src = job.payloads[(l, e)]
+                for tidx, tm in enumerate(g.tensors):
+                    u = uids[tidx] if uids is not None else None
+                    smb = job.sm_data.get(u, src.sm.get(tidx))
                     if smb is not None:
                         pl.sm[tidx] = smb
-                    for k in range(t.k_shards):
-                        eb = job.e_data.get(
-                            (t.uid, k),
-                            job.payloads[(l, e)].e.get((tidx, k)))
+                    for k in range(len(tm.e_sizes)):
+                        eb = job.e_data.get((u, k), src.e.get((tidx, k)))
                         if eb is not None:
                             pl.e[(tidx, k)] = eb
             elif self.device_cache and not self._full_payload_usable(pl):

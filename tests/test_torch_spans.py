@@ -43,7 +43,7 @@ MODES = {
     "budget-host": dict(pool_sizes={"F": 1, "C": 1, "S": 1, "E": 1}),
 }
 ROUND_TRIPS = ("jobs_submitted", "jobs_pure_hit", "subset_waits",
-               "subset_wait_timeouts")
+               "subset_wait_timeouts", "readmit_skips")
 MOE_CHILDREN = ("moe.route", "moe.route.sync", "moe.access", "moe.acquire",
                 "moe.csr", "moe.gemm", "moe.combine", "moe.shared")
 
@@ -302,6 +302,7 @@ def test_engine_round_trip_counters(setup, mode):
     if mode == "resident":
         assert tr["jobs_pure_hit"] == tr["jobs_submitted"]
         assert tr["subset_waits"] == 0
+        assert tr["readmit_skips"] > 0
     else:
         assert tr["jobs_pure_hit"] < tr["jobs_submitted"]
 

@@ -28,7 +28,12 @@ one more line, ``span_split: {...}``:
   clock, contain the ``cudaMemcpyAsync`` of their readback;
   ``idle_gaps``: the sub-window's longest idle gaps, named so;
   ``idle_gaps_end``: named with the program's spans placed by the
-  closing synchronize (the clock check's ``end_shift_us``).
+  closing synchronize (the clock check's ``end_shift_us``);
+- ``engine``: over the window, the engine's round-trip counters of
+  ``transfer_summary()`` (those the program has: ``readmit_skips`` is
+  left out where it lacks it) and ``admits``, the calls of
+  ``HierarchicalCache.admit``; ``engine_per_step``: the same per window
+  step.
 
 ``--spans 0`` runs the same code with the recorder left off: alternate the
 two to measure what recording costs.  Needs the card(s) the cell names.
@@ -197,11 +202,19 @@ def main(argv=None, *, root: Path = ROOT, device=None) -> int:
     from zipbench import run as zrun
     zrun._env()
     from repro_torch.core import spans
+    from repro_torch.core.cache import HierarchicalCache
     from zipbench import harness, trace
     from zipbench.drivers import batch_server
 
     main_tid = threading.get_ident()
     out = {}
+    admits = {"open": False, "n": 0}
+    admit = HierarchicalCache.admit
+
+    def counted_admit(cache, *a, **k):
+        if admits["open"]:
+            admits["n"] += 1
+        return admit(cache, *a, **k)
 
     base = batch_server.Driver
 
@@ -211,8 +224,12 @@ def main(argv=None, *, root: Path = ROOT, device=None) -> int:
             run = self.run
             open_window, tick = run.open_window, run.tick
 
+            engine = self.zs.engine
+
             def opened(now):
                 open_window(now)
+                self.tr0 = engine.transfer_summary()
+                admits["open"] = True
                 if args.spans:
                     spans.enable()
 
@@ -220,6 +237,14 @@ def main(argv=None, *, root: Path = ROOT, device=None) -> int:
                 closed = tick(now, mark)
                 if closed:
                     spans.disable()
+                    admits["open"] = False
+                    tr = engine.transfer_summary()
+                    out["engine"] = {
+                        k: tr[k] - self.tr0[k] for k in (
+                            "jobs_submitted", "jobs_pure_hit",
+                            "subset_waits", "subset_wait_timeouts",
+                            "readmit_skips") if k in tr}
+                    out["engine"]["admits"] = admits["n"]
                 return closed
 
             run.open_window, run.tick = opened, ticked
@@ -254,6 +279,9 @@ def main(argv=None, *, root: Path = ROOT, device=None) -> int:
             out["steps"] = steps
             out["split"] = spans.split(recs)
             out["records_per_step"] = len(recs) / steps if steps else None
+            if steps and "engine" in out:
+                out["engine_per_step"] = {k: n / steps for k, n in
+                                          out["engine"].items()}
             if steps and recs:
                 out["per_step_ms"], out["covered"] = per_step(
                     recs, steps, main_tid)
@@ -275,6 +303,7 @@ def main(argv=None, *, root: Path = ROOT, device=None) -> int:
             return v
 
     batch_server.Driver = SpanDriver
+    HierarchicalCache.admit = counted_admit
     try:
         rc = harness.main(["--workload", args.workload, "--seed",
                            str(args.seed), "--seconds", str(args.seconds),
@@ -282,6 +311,7 @@ def main(argv=None, *, root: Path = ROOT, device=None) -> int:
                           device=device)
     finally:
         batch_server.Driver = base
+        HierarchicalCache.admit = admit
     print("span_split: " + json.dumps(out))
     return rc
 
