@@ -25,10 +25,8 @@ import types
 import torch
 
 from zipbench import modelcfg, weights
-from zipbench.reference import compare, mla_moe
+from zipbench.reference import compare
 from zipbench.window import Step
-
-REFERENCES = {"deepseek_v2": mla_moe}
 
 
 class Driver:
@@ -45,8 +43,9 @@ class Driver:
     def _weights(self):
         """The seeded weights on the run's device (the same every call)."""
         run = self.run
-        return weights.make_weights(self.cfg, run.seed, run.device,
-                                    modelcfg.alpha(run.config_file))
+        return weights.make_weights(
+            self.cfg, run.seed, run.device, modelcfg.alpha(run.config_file),
+            leaf_rule=getattr(run.family, "leaf_rule", None))
 
     def _server_kwargs(self) -> dict:
         kw = dict(self.spec["server"])
@@ -224,7 +223,7 @@ class Driver:
     def reference_numbers(self, control: bool = False):
         run = self.run
         reqs = self.sample()
-        ref = REFERENCES[run.config_file["model_type"]]
+        ref = run.family.REFERENCE
         params = self._weights()
 
         def one(s, prec):

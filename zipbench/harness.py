@@ -3,6 +3,8 @@ print the result line.
 
     BENCHMARK.json            the cells, configurations and metrics
     zipbench/configs/*.json   a configuration (``file`` of its entry)
+    zipbench/families/<model_type>.py   its mapping onto the port's
+                              config, its reference, its weight rules
     zipbench/workloads/<cell>.json   the cell: driver, server settings,
                               warm-up, profiled sub-window, the limits of
                               its correctness numbers
@@ -63,10 +65,12 @@ class Run:
         conf = next(c for c in bench["configs"]
                     if c["name"] == self.entry["config"])
         self.config_file = modelcfg.load(root / conf["file"])
+        self.family = modelcfg.family(self.config_file)
         self.cfg = modelcfg.model_config(self.config_file)
         self.hp = types.SimpleNamespace(
             **asdict(self.cfg),
-            rope_scaling=self.config_file.get("rope_scaling"))
+            rope_scaling=self.config_file.get("rope_scaling"),
+            published=dict(self.config_file))
         self.spec = json.loads((root / "zipbench" / "workloads"
                                 / f"{cell}.json").read_text())
         self.mix = traffic_lib.load(root, self.entry["traffic"])

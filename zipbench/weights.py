@@ -14,12 +14,16 @@ port's ``init_params`` cannot move them, nor the store's compressibility.
 * a router [d, E] is N(0, 0.02^2) with column e scaled by
   ``1 / (1 + alpha * ln(1 + rank_e))``, ``rank`` a permutation of the
   experts drawn from the seed per layer: an expert of lower rank has a wider
-  logit spread and enters the top-k more often.  alpha = 0 is uniform.
+  logit spread and enters the top-k more often.  alpha = 0 is uniform;
+* a 1-D leaf no rule above covers takes the family's ``leaf_rule``
+  (``zipbench/families/``), drawn after the three calls from a generator of
+  its own (``seed ^ 0xFA11``), so a family's extra leaves leave the common
+  leaves' values as they are.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -74,8 +78,11 @@ def apply_skew_(router: torch.Tensor, alpha: float, perm: torch.Tensor):
     return router
 
 
-def make_weights(cfg, seed: int, device, alpha: float) -> Dict:
-    """The parameter tree of `cfg` on `device`, drawn from `seed`."""
+def make_weights(cfg, seed: int, device, alpha: float,
+                 leaf_rule: Optional[Callable] = None) -> Dict:
+    """The parameter tree of `cfg` on `device`, drawn from `seed`;
+    `leaf_rule(path, t, gen)` gives the values of a leaf the common rules
+    do not cover (None: it has none)."""
     dev = torch.device(device)
     tree = structure(cfg)
     items = leaves(tree)
@@ -84,6 +91,7 @@ def make_weights(cfg, seed: int, device, alpha: float) -> Dict:
     perm_gen = torch.Generator("cpu")
     perm_gen.manual_seed(int(seed) ^ 0x5EED)
     groups = {"routed": [], "dense": [], "router": []}
+    family_leaves = []
     for path, t in items:
         if t.dim() == 1:
             if path[-1] in ONES:
@@ -92,8 +100,10 @@ def make_weights(cfg, seed: int, device, alpha: float) -> Dict:
             elif path[-1] == "bias":
                 _set(tree, path, torch.zeros(t.shape, dtype=t.dtype,
                                              device=dev))
-            else:
+            elif leaf_rule is None:
                 raise NotImplementedError(f"no rule for leaf {path}")
+            else:
+                family_leaves.append((path, t))
         elif path[-1] == "router":
             groups["router"].append((path, t))
         elif is_routed(path, t):
@@ -117,6 +127,18 @@ def make_weights(cfg, seed: int, device, alpha: float) -> Dict:
             if name == "router":
                 perm = torch.randperm(t.shape[-1], generator=perm_gen)
                 apply_skew_(v, alpha, perm)
+            _set(tree, path, v)
+    if family_leaves:
+        fgen = torch.Generator(device=dev)
+        fgen.manual_seed(int(seed) ^ 0xFA11)
+        for path, t in family_leaves:
+            v = leaf_rule(path, t, fgen)
+            if v is None:
+                raise NotImplementedError(f"no rule for leaf {path}")
+            if v.shape != t.shape or v.dtype != t.dtype:
+                raise ValueError(f"leaf_rule for {path} gave {v.dtype} "
+                                 f"{tuple(v.shape)}, not {t.dtype} "
+                                 f"{tuple(t.shape)}")
             _set(tree, path, v)
     return tree
 
