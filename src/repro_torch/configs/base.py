@@ -33,6 +33,12 @@ class ModelConfig:
     first_dense: int = 0         # first N layers use the dense MLP (deepseek-v2)
     capacity_factor: float = 1.25
     router_norm_topk: bool = False   # qwen-moe style renormalised top-k probs
+    router_scoring: str = "softmax"  # softmax | sigmoid (DeepSeek-V3's
+                                     # noaux_tc: choose by sigmoid scores
+                                     # plus a per-expert correction bias,
+                                     # weigh by the unbiased scores)
+    routed_scale: float = 1.0        # a sigmoid router's gates x this
+                                     # (routed_scaling_factor)
     # perf knobs (0/off = paper-era GShard defaults; see EXPERIMENTS.md §Perf)
     moe_group_size: int = 0          # split sequences into dispatch groups of
                                      # this many tokens (capacity ∝ group size,
@@ -90,6 +96,12 @@ class ModelConfig:
     zipmoe: str = "auto"         # auto | expert | dense | off
 
     def __post_init__(self):
+        if self.router_scoring not in ("softmax", "sigmoid"):
+            raise ValueError(f"{self.name}: router_scoring="
+                             f"{self.router_scoring!r} (softmax or sigmoid)")
+        if self.router_scoring == "softmax" and self.routed_scale != 1.0:
+            raise ValueError(f"{self.name}: routed_scale "
+                             f"{self.routed_scale} needs the sigmoid router")
         if self.head_dim == 0 and self.n_heads > 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
         if self.zipmoe == "auto":
@@ -179,6 +191,8 @@ class ModelConfig:
             if self.moe_layer(i):
                 e = mlp_params(self.d_expert)
                 total += self.n_experts * e + self.n_shared_experts * e + d * self.n_experts
+                if self.router_scoring == "sigmoid":     # the correction bias
+                    total += self.n_experts
                 active += self.top_k * e + self.n_shared_experts * e + d * self.n_experts
             else:
                 total += mlp_params(self.d_ff); active += mlp_params(self.d_ff)

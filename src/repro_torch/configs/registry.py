@@ -6,7 +6,9 @@ family (qwen2-moe-a2.7b, with the paper's qwen1.5-moe-a2.7b name for it),
 the MLA MoE family (deepseekv2-lite, deepseek-v2-236b), the SSM family
 (mamba2-370m), the hybrid family (jamba-v0.1-52b), the encoder-decoders
 with learned positions (switch-large-128, the paper's third evaluation
-model, and whisper-small) and M-RoPE over input embeddings (qwen2-vl-2b).
+model, and whisper-small) and M-RoPE over input embeddings (qwen2-vl-2b);
+and one the port alone runs: kanana-2-30b-a3b (MLA with DeepSeek-V3's
+sigmoid router).
 ``ASSIGNED`` names the ten the dry run's cells cover, each against every
 entry of ``SHAPES`` (``all_cells``; ``shape_applicable`` marks the skips).
 """
@@ -35,6 +37,8 @@ _ARCH_MODULES = {
     "deepseekv2-lite": "deepseekv2_lite",
     "qwen1.5-moe-a2.7b": "qwen2_moe_a27b",   # identical architecture
     "switch-large-128": "switch_large_128",
+    # the port's own (no JAX counterpart): a sigmoid-routed MLA MoE
+    "kanana-2-30b-a3b": "kanana2_30b_a3b",
 }
 
 ASSIGNED: List[str] = [

@@ -15,6 +15,7 @@ records
   ``configs.registry.shape_applicable`` refuses the cell or the
   ``--variant`` changes nothing in it (``variant_applicable``), else
   ``ok``, or ``error`` with the traceback;
+* ``model_bytes``: the whole model's parameter bytes, unsharded;
 * per-device argument bytes: params (bf16; AdamW's two f32 moments beside
   them for train), the KV/SSM cache for decode, and the batch, each leaf
   cut by its spec (``distributed.sharding.param_pspecs`` with the FSDP
@@ -179,6 +180,12 @@ def meta_params(cfg):
     return build_params(torch.Generator(), cfg, META)
 
 
+def model_bytes(cfg) -> int:
+    """The whole model's parameter bytes, each leaf in its own dtype."""
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(meta_params(cfg)))
+
+
 def argument_bytes(cfg, shape, mesh, kind, seq_shard=False) -> dict:
     """Per-device argument bytes of one cell, by part."""
     sizes = axis_sizes(mesh)
@@ -337,7 +344,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
         terms = roofline_terms(flops_dev, args["total"], coll_dev)
         rec.update(
             status="ok", wall_s=round(time.time() - t0, 2),
-            argument_bytes_per_device=args,
+            model_bytes=model_bytes(cfg), argument_bytes_per_device=args,
             flops_global=probe["flops"], flops_split=split,
             flops_per_device=flops_dev,
             collective_bytes_per_device=coll_dev,
@@ -348,6 +355,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
             else None,
             chips=chips)
         print(f"[{arch} × {shape_name} × {mesh_kind}] OK "
+              f"model={rec['model_bytes']:.3e} B "
               f"flops/dev={flops_dev:.3e} "
               f"args/dev={args['total']:.3e} B "
               f"coll/dev={coll_dev if coll_dev is None else f'{coll_dev:.3e}'} "

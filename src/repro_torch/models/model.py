@@ -323,7 +323,11 @@ def _layer_full(lp, x, cfg, positions, mrope, enc_out, moe_impl,
         if "router" in lp["ffn"]:
             y2, (top_i, probs) = moe_lib.apply_moe(lp["ffn"], h2, cfg,
                                                    impl=moe_impl)
-            aux = moe_lib.load_balance_loss(probs, top_i, cfg)
+            # a sigmoid router (noaux_tc) balances by its bias: no aux loss
+            aux = (moe_lib.load_balance_loss(probs, top_i, cfg)
+                   if cfg.router_scoring == "softmax"
+                   else torch.zeros((), dtype=torch.float32,
+                                    device=x.device))
         else:
             y2 = apply_mlp(lp["ffn"], h2, cfg)
         x = x + y2

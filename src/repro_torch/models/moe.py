@@ -1,8 +1,13 @@
 """Mixture-of-Experts layer: router + routed and shared experts.
 
-Routing variants:
+Routing variants (:func:`route`):
 * ``router_norm_topk=True`` (Qwen-MoE): softmax → top-k → renormalise.
 * default (DeepSeek-V2): softmax over all experts, keep top-k probs as-is.
+* ``router_scoring="sigmoid"`` (DeepSeek-V3's ``noaux_tc`` at one group):
+  sigmoid scores; the top-k of scores + a per-expert correction bias
+  (``router_bias``, [E] f32) choose, the unbiased scores of the chosen
+  experts weigh (renormalised with ``router_norm_topk``), times
+  ``routed_scale``.
 
 The routed expert stacks are ``[E, d, f]`` tensors.  Two entry points:
 
@@ -39,6 +44,9 @@ def init_moe(gen, cfg, device):
     if cfg.n_shared_experts:
         p["shared"] = init_mlp(gen, cfg, device,
                                d_ff=cfg.d_expert * cfg.n_shared_experts)
+    if cfg.router_scoring == "sigmoid":     # zeros, as DeepSeek-V3 starts it
+        p["router_bias"] = torch.zeros(cfg.n_experts, dtype=torch.float32,
+                                       device=device)
     return p
 
 
@@ -49,9 +57,23 @@ def group_capacity(s: int, cfg) -> int:
     return max(8, (cap + 7) // 8 * 8)
 
 
-def route(router_w, x, cfg):
-    """x: [..., d] -> (top_p [...,k] f32, top_i [...,k], probs [...,E])."""
+def route(router_w, x, cfg, bias=None):
+    """x: [..., d] -> (top_p [...,k] f32, top_i [...,k], probs [...,E]).
+
+    ``probs`` are the softmax probabilities, or with a sigmoid router the
+    sigmoid scores; `bias` ([E] f32, a sigmoid router's ``router_bias``)
+    moves the choice only, never a gate."""
     logits = x.float() @ router_w
+    if cfg.router_scoring == "sigmoid":
+        if bias is None:
+            raise ValueError(f"{cfg.name}: a sigmoid router needs its "
+                             f"correction bias")
+        probs = torch.sigmoid(logits)
+        top_i = torch.topk(probs + bias, cfg.top_k, dim=-1).indices
+        top_p = torch.take_along_dim(probs, top_i, dim=-1)
+        if cfg.router_norm_topk:
+            top_p = top_p / (top_p.sum(-1, keepdim=True) + 1e-20)
+        return top_p * cfg.routed_scale, top_i, probs
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = torch.topk(probs, cfg.top_k, dim=-1)
     if cfg.router_norm_topk:
@@ -64,7 +86,7 @@ def apply_moe_decode(p, x, cfg):
     its k selected experts (batched matmuls over the gathered weights)."""
     B, S, d = x.shape
     k = cfg.top_k
-    top_p, top_i, _ = route(p["router"], x, cfg)
+    top_p, top_i, _ = route(p["router"], x, cfg, p.get("router_bias"))
     idx = top_i.reshape(-1)                                   # [B*S*k]
     xe = x.reshape(B * S, 1, d).repeat_interleave(k, dim=0)   # [B*S*k, 1, d]
     if "w_gate" in p:
@@ -109,7 +131,8 @@ def _moe_ffn(p, xin):
 def _apply_einsum(p, xg, cfg, capacity):
     """xg: [G, s, d] grouped tokens -> (y [G, s, d], (top_i, probs))."""
     E, C = p["w_up"].shape[0], capacity
-    top_p, top_i, probs = route(p["router"], xg, cfg)         # [G,s,k]
+    top_p, top_i, probs = route(p["router"], xg, cfg,
+                                p.get("router_bias"))         # [G,s,k]
     pos = _positions(top_i, E)
     keep = (pos < C).float()                                  # [G,s,k]
     # collapse the k slots (a token's expert ids are distinct)
@@ -133,7 +156,8 @@ def _apply_scatter(p, xg, cfg, capacity):
     pair adds zeros at slot 0 and reads back with weight 0."""
     G, s, d = xg.shape
     E, C = p["w_up"].shape[0], capacity
-    top_p, top_i, probs = route(p["router"], xg, cfg)         # [G,s,k]
+    top_p, top_i, probs = route(p["router"], xg, cfg,
+                                p.get("router_bias"))         # [G,s,k]
     pos = _positions(top_i, E)
     keep = pos < C
     posc = torch.where(keep, pos, torch.zeros_like(pos))
@@ -173,7 +197,12 @@ def apply_moe(p, x, cfg, *, impl="einsum", capacity=None):
 
 def load_balance_loss(probs, top_i, cfg):
     """Switch aux loss: E · Σ_e f_e · P_e (f = routed fraction, P = mean
-    router probability)."""
+    router probability).  A sigmoid router's scores are no distribution
+    (``noaux_tc`` balances by its bias, with no auxiliary loss): refused."""
+    if cfg.router_scoring != "softmax":
+        raise ValueError(f"{cfg.name}: the Switch load-balance loss needs "
+                         f"softmax probabilities, not "
+                         f"{cfg.router_scoring!r} scores")
     E = cfg.n_experts
     frac = torch.nn.functional.one_hot(top_i, E).float().reshape(
         -1, E).mean(0)

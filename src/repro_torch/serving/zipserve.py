@@ -1033,14 +1033,19 @@ class ZipServer:
         while per-request accounting runs on pure residency queries."""
         cfg = self.cfg
         ffn = lp["ffn"]
-        sp = spans.span("moe.route", layer_idx)
-        top_p, top_i, _ = route(ffn["router"], x, cfg)       # [B,1,k]
+        # route_s: from ``moe.route``'s start to ``moe.route.sync``'s end,
+        # the spans' own clock readings
+        t_route = time.perf_counter_ns()
+        sp = spans.span("moe.route", layer_idx, start=t_route)
+        top_p, top_i, _ = route(ffn["router"], x, cfg,
+                                ffn.get("router_bias"))      # [B,1,k]
         sp.close()
         sp = spans.span("moe.route.sync", layer_idx)
         # host-sync-ok: the router's choice drives host-side scheduling
         ti = top_i.cpu().numpy()
         tp = top_p.float().cpu().numpy()
-        sp.close()
+        t_routed = time.perf_counter_ns()
+        sp.close(t_routed)
         ids = sorted({int(e) for e in ti.reshape(-1)})
         B = x.shape[0]
         self._last_ids[layer_idx] = ids
@@ -1098,7 +1103,9 @@ class ZipServer:
             with spans.span("moe.shared", layer_idx):
                 y = y + apply_mlp(ffn["shared"], x, cfg)
         self.stats.append({"layer": layer_idx, "fetch_s": fetch_s,
-                           "blocked_s": blocked_s, "io_bytes": io_bytes,
+                           "blocked_s": blocked_s,
+                           "route_s": (t_routed - t_route) * 1e-9,
+                           "io_bytes": io_bytes,
                            "n_experts": len(ids),
                            "routes": ti.reshape(B, cfg.top_k),
                            "owners": None if owners is None else list(owners),
