@@ -27,7 +27,15 @@ failure exits non-zero:
    spills from ``nvcc -Xptxas -v``, are printed too; the grouped GEMM is
    timed with its contraction slices both walked by one CTA and spread
    over CTAs (the bits are held equal), and a repeated ``zip_gemm`` launch
-   is held bit-equal.
+   is held bit-equal.  The two MLA decode kernels (``mla_rope_write``,
+   ``mla_absorbed_attend``) at both benchmark cells' attention shapes
+   (deepseekv2-lite, 16 heads; kanana-2-30b-a3b, 32; 16 rows over a T_pad
+   of 1,536): each against its plain version on the card (the written
+   latent bit-equal, the rope within one ulp, the output within 2^-7 of
+   the largest), timed beside its bound (bytes at 3.35 TB/s or f32
+   operations at 67 TFLOP/s, whichever is larger), and, kernel and plain
+   version alike, on the host clock a call (the plain versions
+   synchronise, so ``med_ms`` cannot time them).
 3. The main path at full width: qwen2-moe-a2.7b with every width as
    published, depth cut to 2 layers, seeded random weights.  Build ONE
    compressed store (groups compressed in parallel), check every expert
@@ -110,13 +118,15 @@ failure exits non-zero:
      ``(kv_lora + rope) x 2 B`` per token and layer;
    * MLA decode with ``absorb=True`` against ``absorb=False`` on one layer
      at the full attention widths of deepseekv2-lite and deepseek-v2-236b
-     (q-LoRA), and the batch-invariance probe of the absorbed products;
+     (q-LoRA), and the batch-invariance probe of the absorbed products
+     and of the attend kernel (a row alone, in the batch and under a
+     padded T: bit-equal, checked);
    * ``mla-resident``: the same requests through the resident
      ``BatchServer`` (MLA ``prefill`` + ``decode_step``), and the CLI once
      with ``--arch deepseekv2-lite`` at its own smoke size.
 
-   Both paths must launch the splice, the splice-admit and the ragged
-   GEMM.
+   Both paths must launch the splice, the splice-admit, the ragged GEMM
+   and the two MLA decode kernels.
 6. The SSM and hybrid families, and the dense GQA configs:
    jamba-v0.1-52b with every width as published (d_model 4096; Mamba2
    d_inner 8192, 128 heads x 64, state 16; 32 heads / 8 KV x 128 with no
@@ -223,7 +233,9 @@ failure exits non-zero:
    * (d) each rank's collective ledger against the reckoning: 3 f32
      all-reduces per attention layer and step; M + P - 1 permutes of one
      micro-batch's activation and one all-reduce of the result a stage;
-   * (e) no kernel launches, in the parent or a rank.
+   * (e) no kernel launches, in the parent or a rank, but the two MLA
+     decode kernels in the parent's default MLA decode, once a layer and
+     step each.
 
    Wall and per-step times print beside the default path's; they are 4
    processes sharing one card, not a speedup measurement.  On a machine
@@ -322,8 +334,10 @@ PATH_KERNELS = {
     "planned": ("slab_gemm",),
     "migration": ("splice_admit",),
     "continuous": ("splice", "splice_admit", "slab_gemm"),
-    "mla-ragged": ("splice", "splice_admit", "slab_gemm"),
-    "mla-continuous": ("splice", "splice_admit", "slab_gemm"),
+    "mla-ragged": ("splice", "splice_admit", "slab_gemm", "mla_rope_write",
+                   "mla_absorbed_attend"),
+    "mla-continuous": ("splice", "splice_admit", "slab_gemm",
+                       "mla_rope_write", "mla_absorbed_attend"),
     "jamba-ragged": ("splice", "splice_admit", "slab_gemm"),
     "jamba-continuous": ("splice", "splice_admit", "slab_gemm"),
     "switch-ragged": ("splice", "splice_admit", "slab_gemm"),
@@ -441,6 +455,18 @@ DRYRUN_SHAPE = "decode_32k"
 DRYRUN_TIMEOUT_S = 120
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12     # dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12       # f32 outside the tensor cores
+# phase 2: the MLA decode kernels at the benchmark cells' attention shapes
+# (deepseekv2-lite: 16 heads; kanana-2-30b-a3b: 32): 16 rows at positions
+# spread evenly over T_pad = 1,536, 0 and T_pad - 1 among them; the timed
+# calls rotate over MLA_KERNEL_SETS latent caches and wkv_b's, past the L2
+MLA_KERNEL_ARCHS = (("deepseekv2-lite", "dsv2lite"),
+                    ("kanana-2-30b-a3b", "kanana2"))
+MLA_KERNEL_B, MLA_KERNEL_T = 16, 1536
+MLA_KERNEL_SETS = 4
+# a host-clock time of a call that synchronises (the plain versions): the
+# mean over this many calls, after as many untimed ones
+WALL_CALLS = 50
 # ragged GEMM vs its f32 plain version: both sum in f32 but in another
 # order, and both round once to bf16, so outputs may differ by a bf16 ulp
 # of the largest outputs; allow two (2^-7 of the largest |output|)
@@ -1032,12 +1058,153 @@ def expert_kernel_shapes(torch, np, dev, arch: str, label: str, ts):
     return res
 
 
+def wall_ms(fn, torch, calls: int = WALL_CALLS) -> float:
+    """Host-clock ms per call of `fn`, synchronised before and after
+    `calls` calls (after as many untimed ones): what a call costs the
+    decode thread, launches and synchronisations included."""
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def mla_kernel_rows(torch, np, dev):
+    """The two MLA decode kernels at each benchmark cell's attention
+    widths (MLA_KERNEL_ARCHS; B 16, T_pad 1,536): each against its plain
+    version on the card (the written latent bit-equal, the rope key and
+    query within one bf16 ulp, the output within MLA_ABSORB_REL_TOL of the
+    largest |output|), then timed with ``med_ms`` (device time; latent
+    caches and ``wkv_b`` rotating past the L2) beside its bound, and both
+    kernels and plain versions on the host clock (``wall_ms``: the plain
+    versions synchronise three times a call, so ``med_ms`` cannot time
+    them).  Returns each kernel's row at deepseekv2-lite's shapes, with
+    kanana-2's numbers under ``kanana2``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mla_decode, ref
+    rate = sleep_rate(torch)
+    rows = {"mla_rope_write": {}, "mla_absorbed_attend": {}}
+    B, T = MLA_KERNEL_B, MLA_KERNEL_T
+    for arch, label in MLA_KERNEL_ARCHS:
+        cfg = get_config(arch)
+        H, C, Dr = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_dim
+        Dn, Dv = cfg.qk_nope_dim, cfg.v_head_dim
+        g = torch.Generator(device=dev).manual_seed(SEED)
+
+        def rnd(shape, std=1.0):
+            return (torch.randn(shape, generator=g, device=dev) * std).to(
+                torch.bfloat16)
+
+        pos = torch.linspace(0, T - 1, B, device=dev).round().long()
+        q, kv = rnd((B, 1, H * (Dn + Dr))), rnd((B, 1, C + Dr))
+        kv_norm = torch.rand(C, generator=g, device=dev) + 0.5
+        sets = [(rnd((C, H * (Dn + Dv)), 0.05), rnd((B, T, C)),
+                 rnd((B, T, Dr))) for _ in range(MLA_KERNEL_SETS)]
+        scale = float(np.float32(1.0) / np.sqrt(np.float32(Dn + Dr)))
+        wkv_b, ckv, k_rope = sets[0]
+        plain = (ckv.clone(), k_rope.clone())
+        qr_p = ref.mla_rope_write_ref(q, kv, kv_norm, pos, *plain,
+                                      n_heads=H, rope_theta=cfg.rope_theta)
+        qr_k = mla_decode.rope_write(q, kv, kv_norm, pos, ckv, k_rope,
+                                     n_heads=H, rope_theta=cfg.rope_theta)
+        torch.cuda.synchronize()
+        ulp = {n: int((a.view(torch.int16).int() - b.view(torch.int16).int())
+                      .abs().max()) for n, a, b in (
+                          ("k_rope", k_rope, plain[1]), ("q_rope", qr_k, qr_p))}
+        check(torch.equal(ckv.view(torch.int16), plain[0].view(torch.int16)),
+              f"mla_rope_write at {label} shapes: the written latent differs "
+              f"from its plain version")
+        check(max(ulp.values()) <= 1, f"mla_rope_write at {label} shapes: "
+              f"rope more than one ulp from its plain version: {ulp}")
+        y_p = ref.mla_absorbed_attend_ref(q, qr_p, wkv_b, *plain, pos,
+                                          n_heads=H, v_head_dim=Dv,
+                                          scale=scale).float()
+        y_k = mla_decode.absorbed_attend(q, qr_p, wkv_b, *plain, pos,
+                                         n_heads=H, v_head_dim=Dv,
+                                         scale=scale).float()
+        err = (y_k - y_p).abs().max().item()
+        top = y_p.abs().max().item()
+        check(err <= MLA_ABSORB_REL_TOL * top, f"mla_absorbed_attend at "
+              f"{label} shapes: error {err} > {MLA_ABSORB_REL_TOL} x {top}")
+        it = [0]
+
+        def write_k():
+            mla_decode.rope_write(q, kv, kv_norm, pos, ckv, k_rope,
+                                  n_heads=H, rope_theta=cfg.rope_theta)
+
+        def write_p():
+            ref.mla_rope_write_ref(q, kv, kv_norm, pos, *plain, n_heads=H,
+                                   rope_theta=cfg.rope_theta)
+
+        def attend_k():
+            w, c, r = sets[it[0] % MLA_KERNEL_SETS]
+            it[0] += 1
+            mla_decode.absorbed_attend(q, qr_k, w, c, r, pos, n_heads=H,
+                                       v_head_dim=Dv, scale=scale)
+
+        def attend_p():
+            w, c, r = sets[it[0] % MLA_KERNEL_SETS]
+            it[0] += 1
+            ref.mla_absorbed_attend_ref(q, qr_k, w, c, r, pos, n_heads=H,
+                                        v_head_dim=Dv, scale=scale)
+
+        n_read = float((pos + 1).sum().item())   # positions the rows read
+        work = {
+            "mla_rope_write": (
+                2.0 * B * (2 * H * Dr + 2 * (C + Dr)) + 4.0 * C + 2.0 * Dr
+                + 8.0 * B, 0.0, write_k, write_p, 0.0),
+            "mla_absorbed_attend": (
+                2.0 * B * H * (Dn + Dr + Dv) + 2.0 * C * H * (Dn + Dv)
+                + 2.0 * n_read * (C + Dr) + 8.0 * B,
+                2.0 * H * (B * C * (Dn + Dv) + n_read * (2 * C + Dr)),
+                attend_k, attend_p, err)}
+        for name, (nbytes, flops, kern, pl, e) in work.items():
+            ms, hms = med_ms(kern, torch, rate)
+            t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+            row = dict(ms=ms, host_ms=hms, wall_ms=wall_ms(kern, torch),
+                       plain_ms=wall_ms(pl, torch),
+                       bytes_bound_ms=t_b * 1e3,
+                       f32_ops_bound_ms=t_o * 1e3,
+                       bound_ms=max(t_b, t_o) * 1e3,
+                       bound_by="bytes" if t_b >= t_o else "f32 operations",
+                       max_abs_err=e, shape=[B, T, H, C, Dr, Dn, Dv])
+            print(f"{label} shapes: {name} {ms:.6g} ms on the device, bound "
+                  f"{row['bound_ms']:.6g} ms ({row['bound_by']}; bytes "
+                  f"{row['bytes_bound_ms']:.6g} ms), "
+                  f"{row['bound_ms'] / ms:.4g} of the bound; host clock a "
+                  f"call: kernel {row['wall_ms']:.6g} ms, plain "
+                  f"{row['plain_ms']:.6g} ms; the host takes {hms:.6g} ms "
+                  f"to enqueue one", flush=True)
+            rows[name][label] = row
+        del sets, ckv, k_rope, plain, wkv_b
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {}
+    for name, by in rows.items():
+        first = by["dsv2lite"]
+        out[name] = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/mla_decode.cu",
+            replaces="none (MLA decode was eager PyTorch)",
+            library_ms=None, kanana2=by["kanana2"],
+            **{k: first[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms",
+                                     "bound_by", "max_abs_err", "shape")})
+    print(json.dumps({"mla_kernels": rows}), flush=True)
+    return out
+
+
 # the kernels' entry functions in the ptxas log, by the name phase 2 gives
 PTXAS_NAMES = {"splice": r"zipmoe_splice_kernel",
                "splice_admit": r"zipmoe_splice_admit_kernel",
                "SlabSource": r"gemm_kernel\w*SlabSource",
                "StackSource": r"gemm_kernel\w*StackSource",
-               "PlaneSource": r"gemm_kernel\w*PlaneSource"}
+               "PlaneSource": r"gemm_kernel\w*PlaneSource",
+               "mla_rope_write": r"mla_rope_write_kernelI13__nv_bfloat16E",
+               "mla_absorbed_attend":
+                   r"mla_absorbed_attend_kernelI13__nv_bfloat16E"}
 
 
 def ptxas_usage(_build):
@@ -1691,11 +1858,14 @@ def batch_variance_probe(torch, dev, cfg, params):
 
 
 def mla_variance_probe(torch, dev, cfg, p, x, g):
-    """The absorbed MLA decode's f32 products (``_mla_decode_attend`` with
-    ``absorb=True``), row 0 in a batch of B against row 0 alone, over a
-    random latent cache of T = 32; and the whole absorbed attention of
-    row 0 at position 5 over T = 16 against the batch padded to 32."""
-    from repro_torch.models.attention import _mla_decode_attend, _mla_q
+    """The absorbed MLA decode's f32 products as its plain version takes
+    them, row 0 in a batch of B against row 0 alone, over a random latent
+    cache of T = 32; and the attend kernel (``ops.mla_absorbed_attend``)
+    on row 0 at position 5 alone over T = 6, in the batch over T = 32 and
+    in the batch over a T of 48 padded with junk: bit-equal on the card
+    (checked there)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import _mla_q, _mla_q_proj, _mla_scale
     B, T = x.shape[0], 32
     q_nope, q_rope = _mla_q(p, x, cfg)
     ckv = torch.randn((B, T, cfg.kv_lora_rank), generator=g,
@@ -1721,15 +1891,29 @@ def mla_variance_probe(torch, dev, cfg, p, x, g):
     }
     out = {name: bool(torch.equal(fn(B)[:1], fn(1)))
            for name, fn in probes.items()}
+    q = _mla_q_proj(p, x, cfg)
+    qr = q_rope.contiguous()
     pos = torch.tensor([5, 31, 20, 9], device=dev)[:B]
-    mask = (torch.arange(T, device=dev)[None] <= pos[:, None])[:, None, None]
-    full = _mla_decode_attend(p, x, cfg, q_nope, q_rope, ckv, k_rope, mask,
-                              True)
-    alone = _mla_decode_attend(p, x[:1], cfg, q_nope[:1], q_rope[:1],
-                               ckv[:1, :16], k_rope[:1, :16],
-                               mask[:1, ..., :16], True)
-    out["MLA absorbed attention over a padded T"] = bool(torch.equal(
-        full[:1].view(torch.int16), alone.view(torch.int16)))
+
+    def attend(n, c, r):
+        return ops.mla_absorbed_attend(
+            q[:n], qr[:n], p["wkv_b"], c, r, pos[:n], n_heads=cfg.n_heads,
+            v_head_dim=cfg.v_head_dim, scale=_mla_scale(cfg))
+
+    full = attend(B, ckv, k_rope)
+    junk = torch.full((B, 16, cfg.kv_lora_rank + cfg.qk_rope_dim), 7.0,
+                      device=dev, dtype=torch.bfloat16)
+    padded = attend(B, torch.cat([ckv, junk[..., :cfg.kv_lora_rank]], 1),
+                    torch.cat([k_rope, junk[..., cfg.kv_lora_rank:]], 1))
+    alone = attend(1, ckv[:1, :6].contiguous(), k_rope[:1, :6].contiguous())
+    name = ("MLA attend kernel: row alone == row in the batch == row under "
+            "a padded T")
+    out[name] = bool(torch.equal(full.view(torch.int16),
+                                 padded.view(torch.int16))
+                     and torch.equal(full[:1].view(torch.int16),
+                                     alone.view(torch.int16)))
+    if dev.type == "cuda":
+        check(out[name], f"{name}: does not hold on the card")
     return out
 
 
@@ -3460,7 +3644,7 @@ def mr_check_pipe(torch, np, dev, cfg, plan, ranks) -> dict:
 
 def multirank_phase(torch, np, dev):
     """Phase 9: the parent's one-process runs, then the ranks, then the
-    checks; no kernel may launch anywhere."""
+    checks; no kernel may launch but the parent's MLA decode kernels."""
     import importlib
     from repro_torch.distributed.launch import spawn_ranks
     from repro_torch.kernels import _build
@@ -3501,7 +3685,15 @@ def multirank_phase(torch, np, dev):
     numbers["pipeline"] = mr_check_pipe(torch, np, dev, cfgs[2], plan,
                                         ranks)
     walls["pipe_sequential"] = time.perf_counter() - t0
-    launched = [dict(_build.LAUNCHES)] + [r["launches"] for r in ranks]
+    # the parent's default MLA decode runs the two MLA decode kernels once
+    # a layer and step on the card; nothing else launches a kernel
+    parent = dict(_build.LAUNCHES)
+    mla = MR_MLA_LAYERS * len(plan["positions"]) if dev.type == "cuda" \
+        else 0
+    check((parent.pop("mla_rope_write"), parent.pop("mla_absorbed_attend"))
+          == (mla, mla), f"multirank: the default MLA decode launched "
+          f"{dict(_build.LAUNCHES)}, expected {mla} of each MLA kernel")
+    launched = [parent] + [r["launches"] for r in ranks]
     check(not any(any(c.values()) for c in launched),
           f"multirank: a kernel launched on the multi-rank paths: "
           f"{launched}")
@@ -3865,6 +4057,7 @@ def main():
     # 4 tokens x top-1 = 4 tiles, 4 distinct experts of 128
     expert_kernel_shapes(torch, np, dev, SWITCH_ARCH, "switch", np.asarray(
         [7, 40, 93, 127], np.int32))
+    kres.update(mla_kernel_rows(torch, np, dev))
     gc.collect()
     torch.cuda.empty_cache()
     walls["2"] = phase_wall("2", t0)

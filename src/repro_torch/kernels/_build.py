@@ -35,7 +35,8 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"splice": 0, "splice_admit": 0, "slab_gemm": 0,
                             "grouped_gemm": 0, "zip_gemm_grouped": 0,
-                            "zip_gemm": 0}
+                            "zip_gemm": 0, "mla_rope_write": 0,
+                            "mla_absorbed_attend": 0}
 
 _lock = threading.Lock()          # the build
 _count_lock = threading.Lock()    # LAUNCHES: never waits on nvcc
@@ -112,7 +113,8 @@ def _compile(out_dir: Path) -> Path:
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    vp, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_float)
     lib.zipmoe_splice.argtypes = [vp, vp, vp, ll, vp]
     lib.zipmoe_splice_admit.argtypes = [vp, i, ll, vp, vp, vp]
     split = [vp, i, i, vp, vp]          # bounds, slices, spread, scratch
@@ -122,9 +124,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.zipmoe_zip_gemm_grouped.argtypes = [vp, vp, vp, vp, i, i, i, i,
                                             *split, vp]
     lib.zipmoe_zip_gemm.argtypes = [vp, vp, vp, vp, i, i, i, *split, vp]
+    lib.zipmoe_mla_rope_write.argtypes = [vp] * 8 + [i] * 8 + [f, f, i, vp]
+    lib.zipmoe_mla_absorbed_attend.argtypes = [vp] * 7 + [i] * 7 + [f, i, vp]
     for fn in (lib.zipmoe_splice, lib.zipmoe_splice_admit,
                lib.zipmoe_slab_gemm, lib.zipmoe_grouped_gemm,
-               lib.zipmoe_zip_gemm_grouped, lib.zipmoe_zip_gemm):
+               lib.zipmoe_zip_gemm_grouped, lib.zipmoe_zip_gemm,
+               lib.zipmoe_mla_rope_write, lib.zipmoe_mla_absorbed_attend):
         fn.restype = i
     return lib
 

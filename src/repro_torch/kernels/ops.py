@@ -3,8 +3,10 @@ device.
 
 A CPU tensor takes the plain PyTorch version in ``kernels/ref.py``; a CUDA
 tensor takes the hand-written kernel or an exception — there is no silent
-plain path on the card and no ``try`` that falls back.  Any other device
-raises.
+plain path on the card and no ``try`` that falls back.  A tensor on the
+meta device (the dry run's shape pass, ``launch/dryrun.py``) takes the
+plain version too, which there computes shapes and nothing else.  Any
+other device raises.
 """
 from __future__ import annotations
 
@@ -12,17 +14,18 @@ import numpy as np
 import torch
 
 from repro_torch.core import bitfield
-from repro_torch.kernels import moe_gemm, recovery, ref
+from repro_torch.kernels import mla_decode, moe_gemm, recovery, ref
 
 
 def _on_cuda(t: torch.Tensor, *others: torch.Tensor) -> bool:
-    """True for CUDA operands, False for CPU ones; mixed devices raise."""
+    """True for CUDA operands, False for CPU (or meta) ones; mixed devices
+    raise."""
     for o in others:
         if o.device != t.device:
             raise ValueError(f"operands on {t.device} and {o.device}")
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"unsupported device {t.device}")
 
@@ -142,3 +145,35 @@ def slab_splice_set(buf: torch.Tensor, slot: int, exp: torch.Tensor,
     buf[int(slot)] = ref.recover_bf16_ref(exp.reshape(-1), sm.reshape(-1)
                                           ).reshape(buf.shape[1:])
     return buf
+
+
+def mla_rope_write(q: torch.Tensor, kv: torch.Tensor, kv_norm: torch.Tensor,
+                   positions: torch.Tensor, ckv: torch.Tensor,
+                   k_rope: torch.Tensor, *, n_heads: int,
+                   rope_theta: float) -> torch.Tensor:  # hot-path
+    """MLA decode's query and latent side: q [B, 1, H (Dn + Dr)], kv
+    [B, 1, C + Dr] -> the rotated q_rope [B, 1, H, Dr]; the new latent
+    (normed by ``kv_norm``) and rope key written into ckv [B, T, C] and
+    k_rope [B, T, Dr] at ``(b, positions[b])`` in place."""
+    if _on_cuda(q, kv, kv_norm, positions, ckv, k_rope):
+        return mla_decode.rope_write(q, kv, kv_norm, positions, ckv, k_rope,
+                                     n_heads=n_heads, rope_theta=rope_theta)
+    return ref.mla_rope_write_ref(q, kv, kv_norm, positions, ckv, k_rope,
+                                  n_heads=n_heads, rope_theta=rope_theta)
+
+
+def mla_absorbed_attend(q: torch.Tensor, q_rope: torch.Tensor,
+                        wkv_b: torch.Tensor, ckv: torch.Tensor,
+                        k_rope: torch.Tensor, positions: torch.Tensor, *,
+                        n_heads: int, v_head_dim: int,
+                        scale: float) -> torch.Tensor:  # hot-path
+    """MLA decode's absorbed attention over the latent cache, row b over
+    ``t <= positions[b]``: [B, 1, H * Dv] in q's dtype, ready for
+    ``wo``."""
+    if _on_cuda(q, q_rope, wkv_b, ckv, k_rope, positions):
+        return mla_decode.absorbed_attend(
+            q, q_rope, wkv_b, ckv, k_rope, positions, n_heads=n_heads,
+            v_head_dim=v_head_dim, scale=scale)
+    return ref.mla_absorbed_attend_ref(
+        q, q_rope, wkv_b, ckv, k_rope, positions, n_heads=n_heads,
+        v_head_dim=v_head_dim, scale=scale)

@@ -22,7 +22,10 @@ return the cache so callers read the same way:
 
 Scores, softmax and (MLA) the absorbed products run in f32 on f32 inputs,
 as the JAX package computes them; ``scaled_dot_product_attention`` is not
-used.
+used.  MLA decode runs, between its input and output projections, through
+``kernels/ops.py``: two hand-written kernels on the card
+(``mla_rope_write``, ``mla_absorbed_attend``), their plain versions
+(``kernels/ref.py``, the composition the port ran before) on the CPU.
 """
 from __future__ import annotations
 
@@ -31,10 +34,10 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.models.layers import apply_mrope, apply_rope, dtype_of, \
-    normal
-
-NEG_INF = -1e30
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import apply_rope, rms_norm_headwise, \
+    where_mask
+from repro_torch.models.layers import apply_mrope, dtype_of, normal
 
 
 def init_attn(gen, cfg, device, cross=False):
@@ -89,19 +92,6 @@ def init_kv_cache(cfg, batch, length, device, dtype=None):
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
-def rms_norm_headwise(scale, x, eps=1e-6):
-    """qk-norm: RMSNorm over the last (head) dim."""
-    xf = x.float()
-    ms = xf.square().mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps) * scale).to(x.dtype)
-
-
-def _where_mask(sc, mask):
-    """`sc` where `mask` holds, NEG_INF elsewhere."""
-    return torch.where(mask, sc, torch.tensor(NEG_INF, dtype=sc.dtype,
-                                              device=sc.device))
-
-
 def _gqa_scores_to_out(q, k, v, mask, *, f32_inputs=True):
     """q: [B,S,Hq,D]; k,v: [B,T,Hkv,D]; mask: bool broadcastable to
     [B,S,T].  f32 scores, softmax and weighted sum.  ``f32_inputs=False``
@@ -117,7 +107,7 @@ def _gqa_scores_to_out(q, k, v, mask, *, f32_inputs=True):
     scores = torch.einsum("bshgd,bthd->bhgst", qf, kf)
     scores = scores / math.sqrt(D)
     if mask is not None:
-        scores = _where_mask(scores, mask[:, None, None, :, :])
+        scores = where_mask(scores, mask[:, None, None, :, :])
     attn = torch.softmax(scores, dim=-1)
     if not f32_inputs:
         attn = attn.to(q.dtype).float()
@@ -242,16 +232,19 @@ def _mla_scale(cfg) -> float:
         np.float32(cfg.qk_nope_dim + cfg.qk_rope_dim)))
 
 
+def _mla_q_proj(p, x, cfg):
+    """x: [B, S, d] -> the query [B, S, H (Dn + Dr)], unrotated; with a
+    q-LoRA rank it goes through wq_a, q_norm and wq_b."""
+    if cfg.q_lora_rank:
+        return rms_norm_headwise(p["q_norm"], x @ p["wq_a"]) @ p["wq_b"]
+    return x @ p["wq"]
+
+
 def _mla_q(p, x, cfg):
-    """x: [B, S, d] -> (q_nope [B,S,H,Dn], q_rope [B,S,H,Dr]), unrotated;
-    with a q-LoRA rank the query goes through wq_a, q_norm and wq_b."""
+    """x: [B, S, d] -> (q_nope [B,S,H,Dn], q_rope [B,S,H,Dr]), unrotated."""
     B, S, _ = x.shape
     qk_head = cfg.qk_nope_dim + cfg.qk_rope_dim
-    if cfg.q_lora_rank:
-        q = rms_norm_headwise(p["q_norm"], x @ p["wq_a"]) @ p["wq_b"]
-    else:
-        q = x @ p["wq"]
-    q = q.reshape(B, S, cfg.n_heads, qk_head)
+    q = _mla_q_proj(p, x, cfg).reshape(B, S, cfg.n_heads, qk_head)
     return q.split([cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
 
 
@@ -275,7 +268,7 @@ def _mla_scores_to_out(q_nope, q_rope, k_nope, k_rope, v, mask, scale):
           + torch.einsum("bshd,btd->bhst", q_rope.float(),
                          k_rope.float())) * scale
     if mask is not None:
-        sc = _where_mask(sc, mask)
+        sc = where_mask(sc, mask)
     attn = torch.softmax(sc, dim=-1)
     return torch.einsum("bhst,bthd->bshd", attn, v.float())
 
@@ -315,28 +308,18 @@ def mla_forward(p, x, cfg, positions, *, causal=True, return_cache=False):
     return y
 
 
-def _mla_decode_attend(p, x, cfg, q_nope, q_rope, ckv, k_rope, mask,
-                       absorb):
-    """One token's MLA attention over the updated latent cache.  mask: bool
-    broadcastable to [B, H, 1, T].  ``wkv_b``'s columns are laid out
-    ``[C, H, Dn + Dv]``.  ``absorb`` folds the key projection into the
-    query and the value projection into the output, so the scores and the
-    weighted sum run over the latent; otherwise per-token K/V are rebuilt
-    from it.  Both in f32; the same function in another order."""
+def _mla_decode_plain(p, x, cfg, q_nope, q_rope, ckv, k_rope, mask):
+    """One token's MLA attention over the updated latent cache, the
+    unabsorbed form: per-token K/V rebuilt from the latent through
+    ``wkv_b`` (columns laid out ``[C, H, Dn + Dv]``), f32 throughout.
+    mask: bool broadcastable to [B, H, 1, T]."""
     scale = _mla_scale(cfg)
     qr, kr, cf = q_rope.float(), k_rope.float(), ckv.float()
-    if absorb:
-        q_c, w_v = mla_absorb_q(p, cfg, q_nope)
-        sc = (torch.einsum("bshc,btc->bhst", q_c, cf)
-              + torch.einsum("bshd,btd->bhst", qr, kr)) * scale
-        attn = torch.softmax(_where_mask(sc, mask), dim=-1)
-        o_c = torch.einsum("bhst,btc->bshc", attn, cf)
-        return mla_absorb_out(p, x, cfg, o_c, w_v)
     kv = torch.einsum("btc,chd->bthd", cf, _mla_wkv_b(p, cfg))
     k_nope, v = kv.split([cfg.qk_nope_dim, cfg.v_head_dim], dim=-1)
     sc = (torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope)
           + torch.einsum("bshd,btd->bhst", qr, kr)) * scale
-    attn = torch.softmax(_where_mask(sc, mask), dim=-1)
+    attn = torch.softmax(where_mask(sc, mask), dim=-1)
     out = torch.einsum("bhst,bthd->bshd", attn, v)
     return _mla_out(p, x, cfg, out)
 
@@ -368,47 +351,52 @@ def _mla_out(p, x, cfg, out):
     return out @ p["wo"]
 
 
+def _mla_decode(p, x, cfg, cache, positions, absorb):  # hot-path
+    """The decode of :func:`mla_decode_rows`: the two input projections,
+    then ``ops.mla_rope_write`` (rotations, ``kv_norm``, the cache write)
+    and, absorbed, ``ops.mla_absorbed_attend`` (the attention over the
+    latent), then ``wo``: two hand-written kernels on the card, their
+    plain versions on the CPU.  Returns y [B, 1, d]."""
+    q = _mla_q_proj(p, x, cfg)
+    q_rope = ops.mla_rope_write(q, x @ p["wkv_a"], p["kv_norm"], positions,
+                                cache["ckv"], cache["k_rope"],
+                                n_heads=cfg.n_heads,
+                                rope_theta=cfg.rope_theta)
+    if absorb:
+        out = ops.mla_absorbed_attend(q, q_rope, p["wkv_b"], cache["ckv"],
+                                      cache["k_rope"], positions,
+                                      n_heads=cfg.n_heads,
+                                      v_head_dim=cfg.v_head_dim,
+                                      scale=_mla_scale(cfg))
+        return out @ p["wo"]
+    B, T = x.shape[0], cache["ckv"].shape[1]
+    q_nope = q.reshape(B, 1, cfg.n_heads, -1)[..., :cfg.qk_nope_dim]
+    mask = (torch.arange(T, device=x.device)[None, :]
+            <= positions[:, None])[:, None, None]             # [B,1,1,T]
+    return _mla_decode_plain(p, x, cfg, q_nope, q_rope, cache["ckv"],
+                             cache["k_rope"], mask)
+
+
 def mla_decode(p, x, cfg, cache, pos: int, *, absorb=True):  # hot-path
     """MLA decode over the latent cache.  x: [B, 1, d]; cache ``{"ckv":
     [B,T,C], "k_rope": [B,T,Dr]}``; pos: the new token's index.  The new
     latent is written at `pos` in place; every row attends over positions
     ``<= pos``.  ``absorb=True`` (what the server runs) is the
     matrix-absorption form.  Returns (y [B, 1, d], cache)."""
-    B = x.shape[0]
-    T = cache["ckv"].shape[1]
-    posv = torch.full((B, 1), int(pos), dtype=torch.int32, device=x.device)
-    q_nope, q_rope = _mla_q(p, x, cfg)
-    q_rope = apply_rope(q_rope, posv, cfg.rope_theta)
-    ckv_new, k_rope_new = _mla_kv_latent(p, x, cfg, posv)
-    cache["ckv"][:, pos] = ckv_new[:, 0]
-    cache["k_rope"][:, pos] = k_rope_new[:, 0]
-    mask = (torch.arange(T, device=x.device) <= pos)[None, None, None, :]
-    y = _mla_decode_attend(p, x, cfg, q_nope, q_rope, cache["ckv"],
-                           cache["k_rope"], mask, absorb)
-    return y, cache
+    positions = torch.full((x.shape[0],), int(pos), dtype=torch.long,
+                           device=x.device)
+    return _mla_decode(p, x, cfg, cache, positions, absorb), cache
 
 
 def mla_decode_rows(p, x, cfg, cache, positions, *,
                     absorb=True):  # hot-path
     """Per-row-position MLA decode (continuous batching), the row-vector
-    form of :func:`mla_decode`: positions is an int tensor [B] on x's
+    form of :func:`mla_decode`: positions is an int64 tensor [B] on x's
     device; row b writes its latent at ``(b, positions[b])`` in place and
     attends over entries ``<= positions[b]`` (later ones get exactly zero
-    weight; see :func:`gqa_decode_rows`).  Returns (y [B, 1, d], cache)."""
-    B = x.shape[0]
-    T = cache["ckv"].shape[1]
-    posv = positions[:, None]
-    q_nope, q_rope = _mla_q(p, x, cfg)
-    q_rope = apply_rope(q_rope, posv, cfg.rope_theta)
-    ckv_new, k_rope_new = _mla_kv_latent(p, x, cfg, posv)
-    rows = torch.arange(B, device=x.device)
-    cache["ckv"][rows, positions] = ckv_new[:, 0]
-    cache["k_rope"][rows, positions] = k_rope_new[:, 0]
-    mask = (torch.arange(T, device=x.device)[None, :]
-            <= positions[:, None])[:, None, None]             # [B,1,1,T]
-    y = _mla_decode_attend(p, x, cfg, q_nope, q_rope, cache["ckv"],
-                           cache["k_rope"], mask, absorb)
-    return y, cache
+    weight, and the kernel does not read them; see
+    :func:`gqa_decode_rows`).  Returns (y [B, 1, d], cache)."""
+    return _mla_decode(p, x, cfg, cache, positions, absorb), cache
 
 
 # ----------------------------------------------------------------------------

@@ -31,10 +31,10 @@ import torch.distributed as dist
 
 from repro_torch.distributed.collectives import all_reduce
 from repro_torch.distributed.sharding import Spec, shard_local
+from repro_torch.kernels.ref import apply_rope, where_mask
 from repro_torch.models.attention import (_mla_kv_latent, _mla_q, _mla_scale,
-                                          _project_qkv, _where_mask,
-                                          mla_absorb_out, mla_absorb_q)
-from repro_torch.models.layers import apply_rope
+                                          _project_qkv, mla_absorb_out,
+                                          mla_absorb_q)
 
 
 def _shard(cache, mesh, axis):
@@ -53,7 +53,7 @@ def _owner_write(buf, new, pos: int, start: int):
 def _softmax_parts(sc, valid, group, ledger):
     """Masked local scores [..., T_loc] -> (exp(sc - global max), the
     global normaliser [..., 1])."""
-    sc = _where_mask(sc, valid)
+    sc = where_mask(sc, valid)
     m = all_reduce(sc.amax(-1, keepdim=True), dist.ReduceOp.MAX, group,
                    ledger)
     pexp = torch.exp(sc - m)

@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels.ref import rope_freqs
+
 
 def dtype_of(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
@@ -47,24 +49,6 @@ def apply_norm(p, x, cfg, eps=1e-6):
 # ----------------------------------------------------------------------------
 # Rotary position embeddings
 # ----------------------------------------------------------------------------
-def rope_freqs(head_dim, theta):
-    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
-                            / head_dim))
-
-
-def apply_rope(x, positions, theta):
-    """x: [..., S, H, D]; positions: [..., S] int."""
-    d = x.shape[-1]
-    freqs = torch.from_numpy(rope_freqs(d, theta).astype(np.float32)).to(
-        x.device)                                             # [D/2]
-    angles = positions[..., None].float() * freqs             # [..., S, D/2]
-    cos = torch.cos(angles)[..., None, :]                     # [..., S, 1, D/2]
-    sin = torch.sin(angles)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
-
-
 def apply_mrope(x, positions3, theta, sections=(16, 24, 24)):
     """Qwen2-VL multimodal RoPE.  x: [B, S, H, D]; positions3: [3, B, S]
     int (temporal, height, width channels).  `sections` gives the number

@@ -3,11 +3,14 @@ per-step sums and the self time of ``zs.decode_rows`` where children
 overlap and where they leave gaps; the benchmark's ``idle_gaps`` naming a
 gap by a program span nested in its own ``zb.decode_rows``, never by a
 worker thread's span; the clock check of ``moe.route.sync`` against the
-trace's ``cudaMemcpyAsync`` events."""
+trace's ``cudaMemcpyAsync`` events; the window's kernel launches beside
+``zs.attn``, per step and per MLA layer-step."""
 import pytest
 
 from repro_torch.core import spans
-from tools.span_split import clock_check, per_step, program_spans
+from repro_torch.configs import get_smoke_config
+from tools.span_split import (attn_launches, clock_check, per_step,
+                              program_spans)
 from zipbench.trace import idle_gaps
 
 MAIN, WORKER = 1, 2
@@ -66,6 +69,33 @@ def test_per_step_sums():
     assert got["moe_host"] == pytest.approx(2.5)
     assert got["engine_collect"] == pytest.approx(1.0)
     assert got["kv_pages"] == pytest.approx(0.75)
+
+
+@pytest.mark.parametrize("arch,layers", [("deepseekv2-lite", 3),
+                                         ("jamba-v0.1-52b", 1)])
+def test_attn_launches(arch, layers):
+    """Launches per window step, and for an MLA config the MLA decode
+    kernels' per attention layer and step: 1 each when every MLA
+    layer-step ran them; a GQA config (jamba: one attention layer of 8)
+    gets no MLA split."""
+    cfg = get_smoke_config(arch, n_layers=3 if layers == 3 else 8)
+    steps = 10
+    delta = {"slab_gemm": 60, "mla_rope_write": steps * layers,
+             "mla_absorbed_attend": steps * layers}
+    got = attn_launches(delta, steps, cfg, attn_ms=1.25)
+    assert got["zs.attn_ms_per_step"] == 1.25
+    assert got["launches_per_step"] == {"slab_gemm": 6.0,
+                                        "mla_rope_write": layers,
+                                        "mla_absorbed_attend": layers}
+    if cfg.attn == "mla":
+        assert got["mla_layers"] == layers
+        assert got["launches_per_layer_step"] == {
+            "mla_rope_write": 1.0, "mla_absorbed_attend": 1.0}
+    else:
+        assert "launches_per_layer_step" not in got
+    # a program without the kernels (a parent checkout): no split to read
+    parent = attn_launches({"slab_gemm": 60}, steps, cfg)
+    assert parent.get("launches_per_layer_step", {}) == {}
 
 
 def _view(spans_):

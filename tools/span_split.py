@@ -33,7 +33,12 @@ one more line, ``span_split: {...}``:
   ``transfer_summary()`` (those the program has: ``readmit_skips`` is
   left out where it lacks it) and ``admits``, the calls of
   ``HierarchicalCache.admit``; ``engine_per_step``: the same per window
-  step.
+  step;
+- ``attn``: ``zs.attn``'s ms per window step beside the window's kernel
+  launches (``kernels._build.LAUNCHES``, those that moved) per step, and
+  the MLA decode kernels' launches per attention layer and step (1 each
+  when every MLA layer-step went through them; absent where the program
+  has no such kernel).
 
 ``--spans 0`` runs the same code with the recorder left off: alternate the
 two to measure what recording costs.  Needs the card(s) the cell names.
@@ -84,6 +89,24 @@ def per_step(records, steps: int, main_tid: int):
              "decode_untraced": untraced / steps / 1e6,
              "decode_rows": dur / steps / 1e6},
             1.0 - untraced / dur if dur else None)
+
+
+MLA_KERNELS = ("mla_rope_write", "mla_absorbed_attend")
+
+
+def attn_launches(delta, steps: int, cfg, attn_ms=None):
+    """``zs.attn``'s ms per step beside the window's kernel launches
+    `delta` (name -> launches) per step, and the MLA decode kernels'
+    launches per attention layer and step of an MLA `cfg`."""
+    out = {"zs.attn_ms_per_step": attn_ms,
+           "launches_per_step": {k: n / steps for k, n in delta.items()}}
+    if cfg.attn == "mla":
+        layers = sum(1 for i in range(cfg.n_layers) if cfg.attn_layer(i))
+        out["mla_layers"] = layers
+        out["launches_per_layer_step"] = {
+            k: delta[k] / (steps * layers) for k in MLA_KERNELS
+            if k in delta}
+    return out
 
 
 def clock_check(records, events, a: float, b: float, t0_us: float):
@@ -203,6 +226,7 @@ def main(argv=None, *, root: Path = ROOT, device=None) -> int:
     zrun._env()
     from repro_torch.core import spans
     from repro_torch.core.cache import HierarchicalCache
+    from repro_torch.kernels import _build
     from zipbench import harness, trace
     from zipbench.drivers import batch_server
 
@@ -229,6 +253,7 @@ def main(argv=None, *, root: Path = ROOT, device=None) -> int:
             def opened(now):
                 open_window(now)
                 self.tr0 = engine.transfer_summary()
+                self.launches0 = dict(_build.LAUNCHES)
                 admits["open"] = True
                 if args.spans:
                     spans.enable()
@@ -245,6 +270,10 @@ def main(argv=None, *, root: Path = ROOT, device=None) -> int:
                             "subset_waits", "subset_wait_timeouts",
                             "readmit_skips") if k in tr}
                     out["engine"]["admits"] = admits["n"]
+                    out["launches"] = {
+                        k: n - self.launches0.get(k, 0)
+                        for k, n in _build.LAUNCHES.items()
+                        if n != self.launches0.get(k, 0)}
                 return closed
 
             run.open_window, run.tick = opened, ticked
@@ -285,6 +314,10 @@ def main(argv=None, *, root: Path = ROOT, device=None) -> int:
             if steps and recs:
                 out["per_step_ms"], out["covered"] = per_step(
                     recs, steps, main_tid)
+            if steps and "launches" in out:
+                out["attn"] = attn_launches(
+                    out["launches"], steps, self.cfg,
+                    out.get("per_step_ms", {}).get("attn_host"))
             if view is not None:
                 tr = self.run.tracer
                 out["clock"] = clock_check(self.records, self.events,
