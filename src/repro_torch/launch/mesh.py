@@ -41,6 +41,7 @@ def make_production_mesh(*, multi_pod: bool = False, device_type=None):
 # NVIDIA H100 SXM5 (NVIDIA H100 Tensor Core GPU data sheet): roofline
 # denominators of one card
 PEAK_FLOPS_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
+F32_FLOPS = 67e12               # f32 FLOP/s outside the tensor cores
 HBM_BW = 3.35e12                # B/s
 NVLINK_BW = 900e9               # B/s, NVLink 4, both directions together
 CHIPS = {"single": 256, "multi": 512}

@@ -170,3 +170,49 @@ def device_rank(rank, world, ckpt_dir, template, cfg, dev_type):
         for _, w, d, s in _leaf_triples(whole, tree, shardings))
     return (got.device.type == dev_type, got.float().cpu().numpy(),
             ledger.summary(), blocks_ok)
+
+
+def card_rank(rank, world, jobs, pipe, dev_type):
+    """On `dev_type` over gloo (the card: every rank shares it): each
+    seq-sharded decode job on a ("model",) mesh of `world` ranks, then the
+    pipeline job on `world` stages.  jobs: [(cfg, params, full caches,
+    [(pos, tokens [B, 1]), ...])] and pipe: (cfg, params, x_micro
+    [M, B, S, d]), all on the CPU.  Returns per job the logits at each
+    step, this rank's ``kv`` cache shards and its ledger summary; the
+    pipeline's result bits and ledger summary; and the kernel launches."""
+    from repro_torch.distributed.pipeline import (pipeline_forward,
+                                                  stage_layers)
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.decode_attention import seqshard_caches
+    from repro_torch.models.model import decode_step
+    from repro_torch.serving.kv_cache import map_tree
+    mesh = make_mesh((world,), ("model",), dev_type)
+    dev = torch.device(mesh.device_type)
+
+    def to_dev(tree):
+        return map_tree(lambda t: t if t is None else t.to(dev), tree)
+
+    _build.reset_launches()
+    out = {"decode": []}
+    for cfg, params, caches, steps in jobs:
+        params = to_dev(params)
+        local = seqshard_caches(to_dev(caches), mesh)
+        ledger = col.CollectiveLedger()
+        logits = []
+        for pos, tokens in steps:
+            lg, local = decode_step(params, cfg, tokens.to(dev), local, pos,
+                                    attn_impl="seqshard", mesh=mesh,
+                                    ledger=ledger)
+            logits.append(lg.cpu().numpy())
+        out["decode"].append((logits, map_tree(lambda t: t.cpu().numpy(),
+                                               [c["kv"] for c in local]),
+                              ledger.summary()))
+    cfg, params, x = pipe
+    ledger = col.CollectiveLedger()
+    layers = stage_layers(to_dev(params)["layers"], cfg, rank, world)
+    y = pipeline_forward(layers, x.to(dev), cfg, None, ledger=ledger)
+    out["pipe"] = (y.view(_bits(y)).cpu().numpy(), ledger.summary())
+    dist.barrier()
+    out["launches"] = dict(_build.LAUNCHES)
+    return out

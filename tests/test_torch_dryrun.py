@@ -12,6 +12,8 @@ meta device, held to the JAX package where the two reckon the same thing.
   512-device ``XLA_FLAGS`` in this process).
 * Per-device param bytes on the (16, 16) mesh equal what the reference's
   own specs give for its own parameter tree, for two full configs.
+* ``param_counts()["total"]`` equals the matrix entries of the port's
+  own parameter tree for the dense and MoE transformer configs.
 * The CLI: ``--all --mesh both`` writes a record per cell with no error,
   the ``seqkv`` variant reckons the seq-sharded decode's all-reduces, and
   ``--pp-demo`` the pipeline's collectives.
@@ -120,6 +122,22 @@ def test_param_bytes_match_reference_specs(arch):
     rspec = ref_sh.param_pspecs(jtree, jcfg, model_size=16,
                                 fsdp=args["fsdp"], data_size=16)
     assert args["params"] == _ref_local_bytes(rspec, jtree, sizes) > 0
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "deepseek-coder-33b",
+                                  "starcoder2-3b", "qwen3-14b",
+                                  "qwen2-moe-a2.7b", "deepseek-v2-236b",
+                                  "deepseekv2-lite"])
+def test_param_counts_are_the_trees_matrices(arch):
+    """``param_counts()["total"]`` (which the sharding rules size FSDP
+    by, and the train CLI prints) is the number of entries in the
+    parameter tree's matrices at every published width, built on the
+    meta device; the norm scales come on top."""
+    from repro_torch.models.model import build_params
+    cfg = get_config(arch)
+    tree = build_params(torch.Generator(), cfg, torch.device("meta"))
+    assert sum(p.numel() for p in tree_leaves(tree) if p.ndim >= 2) == \
+        cfg.param_counts()["total"]
 
 
 def test_cli_all_cells(tmp_path, capsys):

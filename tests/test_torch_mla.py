@@ -478,7 +478,8 @@ def test_zipserver_decode_rows_matches_reference(lite_store, monkeypatch,
     both packages' ``BatchServer``s, the same batches in the same order,
     every route the same except at router near-ties; each request's logits
     within MAX_REL and its tokens equal where decided, up to its first
-    near-tie flip (a flipped route takes another FFN, as in chip_smoke.py);
+    near-tie flip (a flipped route takes another FFN, as in
+    ``test_torch_cuda.py``);
     with no flip the per-request cache accounting equals the reference's."""
     jcfg, jparams, cfg, params, d = lite_store
     zs_kw = dict(pool_sizes=POOLS, device_cache=device_cache)

@@ -209,7 +209,8 @@ def test_prefill_matches_reference(models, monkeypatch):
     JAX package's layout), and the full pass's load-balance loss.  A router
     near-tie (the k-th and (k+1)-th reference probabilities within
     ``NEAR_TIE``) may pick another expert in the other package; that
-    token's row is compared only before it (as chip_smoke.py does)."""
+    token's row is compared only before it (as the card tests in
+    ``test_torch_cuda.py`` do)."""
     jcfg, jparams, cfg, params = models
     B, S = 2, 12
     toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (B, S))
