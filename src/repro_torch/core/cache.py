@@ -19,6 +19,13 @@ Live-engine extensions (used by core/engine.py):
   selected expert can never evict another one mid-step.
 * residency-state transition counters (``transitions``) and eviction counts,
   surfaced by ``summary()`` next to per-pool hit rates.
+* ``epoch`` — a mutation counter: every ``admit`` and ``resize`` bumps it
+  (so every placement, eviction and demotion does), and the engine bumps
+  it (``touch``) for each change it makes to a resident's payload or to
+  the layer's device slab.  While it stands, pool membership, every
+  resident's payload and every slot the payloads name are as they were;
+  only key order (a re-admission no-op's move to F's end, an LRU touch)
+  may have changed.
 
 ``FlatCache`` provides the FIFO / LRU / Marking baselines for the Fig. 10
 ablation (single full-tensor pool, classic eviction policies, simulator
@@ -114,6 +121,12 @@ class _LiveCacheTelemetry:
         self.pinned = collections.Counter()
         self.transitions = collections.Counter()   # (from_state, to_state)
         self.evictions = 0                         # residents dropped to M
+        self.epoch = 0                             # see the module notes
+
+    def touch(self):
+        """Bump the mutation epoch: a resident's payload or a slot it
+        names changed outside ``admit``/``resize``."""
+        self.epoch += 1
 
     def pin(self, experts: Sequence[int]):
         """Protect `experts` from eviction until a matching :meth:`unpin`.
@@ -275,6 +288,7 @@ class HierarchicalCache(_LiveCacheTelemetry):
     def admit(self, expert: int, payload=None) -> Optional[str]:
         """Place expert per dispatch rule (called after its execution)."""
         self._guard.check()
+        self.epoch += 1
         prev = self.residency(expert)
         target = self.target_pool(expert)
         # drop from any other pool (state change / re-placement)
@@ -331,6 +345,7 @@ class HierarchicalCache(_LiveCacheTelemetry):
         residents' next admission (``_place`` enforces the new caps from
         now on)."""
         self._guard.check()
+        self.epoch += 1
         self.cap = {p: int(capacities.get(p, 0)) for p in self.order}
         if cap_bytes is not None:
             self.cap_bytes = {p: float(cap_bytes.get(p, 0.0))
@@ -517,6 +532,7 @@ class LiveFlatCache(_LiveCacheTelemetry):
         """Insert (classic caches always admit on miss), evicting an unpinned
         victim per policy when full."""
         self._guard.check()
+        self.epoch += 1
         if expert in self.entries:
             if payload is not None:
                 self.entries[expert].payload = payload
@@ -551,6 +567,7 @@ class LiveFlatCache(_LiveCacheTelemetry):
         are never victims — an all-pinned overflow defers to the next
         admission.  Grow is churn-free."""
         self._guard.check()
+        self.epoch += 1
         self.capacity = int(capacity)
         self.cap = {p: 0 for p in self.order}
         self.cap["F"] = self.capacity

@@ -212,6 +212,13 @@ class _FetchJob:
         self.dec_needed: Dict[int, int] = {}
         # (layer, expert, tidx) -> recovered tensor
         self.done_tensors: Dict[Tuple[int, int, int], np.ndarray] = {}
+        # a pure hit on F (_pure_hit with lazy=True): each key's `full` dict
+        # as its F payload held it at submit, and each layer's cache epoch
+        # then.  done_tensors is filled from these only when a collect walks
+        # (_seed_done); while a layer's epoch stands, its collects read them
+        self.fulls: Optional[Dict[Tuple[int, int], Dict[int, object]]] = None
+        self.epochs: Dict[int, int] = {}
+        self.seeded = False
         self.claimed: set = set()                         # uids being recovered
         self.n_done = 0
         self.n_total = 0
@@ -283,10 +290,9 @@ class FetchHandle:
     def done(self) -> bool:
         return self._job.done_ev.is_set()
 
-    @staticmethod
-    def _flatten(out: Dict[Tuple[int, int], Dict[str, np.ndarray]]):
+    def _flatten(self, out: Dict[Tuple[int, int], Dict[str, np.ndarray]]):
         """{(layer, e): w} -> {e: w} when one layer is covered."""
-        if len({l for l, _ in out}) <= 1:
+        if len(self._job.layers) == 1 or len({l for l, _ in out}) <= 1:
             return {e: w for (_, e), w in out.items()}
         return out
 
@@ -334,7 +340,7 @@ class FetchHandle:
         job = self._job
         l = job.layer if layer is None else int(layer)
         want = {(l, int(e)) for e in experts}
-        assert want <= set(job.expert_keys), (want, job.expert_keys)
+        assert all(k in job.payloads for k in want), (want, job.expert_keys)
         eng = self._engine
         dl = eng.fetch_deadline_s if deadline_s is None else deadline_s
         t0 = time.perf_counter()
@@ -536,6 +542,17 @@ class ZipMoEEngine:
         # single-writer: decode thread (_collect): admissions of an expert
         # already in F that would have left the cache as it was
         self.readmit_skips = 0
+        # single-writer: decode thread (_collect): the keys collected, those
+        # handed back and re-admitted with no walk (a pure hit's layer whose
+        # cache epoch stood since submit), and slab reconciles skipped for
+        # nothing having changed since the last one
+        self.collect_keys = 0
+        self.collect_fast_keys = 0
+        self.reconcile_skips = 0
+        # per layer: the cache epoch its slab was last reconciled at, and
+        # the F view (_f_view) with the epoch it was built at
+        self._slab_epochs: Dict[int, int] = {}
+        self._f_views: Dict[int, Tuple[int, Dict]] = {}
         # per-worker-slot generation counters: the watchdog bumps a slot's
         # gen when replacing its thread, and an abandoned thread exits at
         # its next loop top instead of double-draining the queues
@@ -603,6 +620,7 @@ class ZipMoEEngine:
                     slab.retire()
         for cache in self.caches.values():
             cache.demote_payload = None
+        self._f_views.clear()
         self.recover = None
 
     def __enter__(self):
@@ -794,8 +812,9 @@ class ZipMoEEngine:
                 else:
                     shapes = {t.name: tuple(t.shape) for t in
                               self.store.groups[(layer, expert)].tensors}
-                    self._slabs[layer] = DeviceSlabCache(layer, shapes, cap,
-                                                         self.device)
+                    slab = DeviceSlabCache(layer, shapes, cap, self.device)
+                    slab.on_change = self.caches[layer].touch
+                    self._slabs[layer] = slab
         return self._slabs[layer]
 
     def _reconcile_slab(self, layer: int):
@@ -805,11 +824,18 @@ class ZipMoEEngine:
         newly F-resident experts' device tensors are written into a slot
         in place (the splice-admit kernel for uploaded planes), their
         payloads swapped to SlotRefs.  Because F occupancy never exceeds the slab capacity,
-        freeing the leavers always leaves room for the arrivals."""
+        freeing the leavers always leaves room for the arrivals.  It
+        returns at once (``reconcile_skips``) while the layer cache's epoch
+        is the one the last reconcile ended at: nothing in F or the slab
+        changed since, so the walk would find nothing to do."""
         slab = self._slab(layer)
         if slab is None:
             return
-        fpool = self.caches[layer].pools["F"]
+        cache = self.caches[layer]
+        if self._slab_epochs.get(layer) == cache.epoch:
+            self.reconcile_skips += 1
+            return
+        fpool = cache.pools["F"]
         for e in [e for e in slab.slot_of if e not in fpool]:
             slab.free(e)
         names = None
@@ -829,6 +855,7 @@ class ZipMoEEngine:
                 for tidx, v in pl.full.items():
                     if isinstance(v, DevicePlanes):
                         pl.full[tidx] = self._splice_planes(v)
+                        cache.touch()
                 continue
             if names is None:
                 names = [t.name for t in
@@ -844,11 +871,13 @@ class ZipMoEEngine:
                     tensors[names[tidx]] = v
             refs = slab.put(e, tensors)
             pl.full = {tidx: refs[names[tidx]] for tidx in pl.full}
+        self._slab_epochs[layer] = cache.epoch
 
     def _refetch_tensor(self, l: int, e: int, tidx: int):
         """Materialise one tensor whose slab SlotRef went stale while its
         job was pending: exact-range store reads on the caller's thread,
         uploaded (and charged to ``h2d_bytes``) in device mode."""
+        self.caches[l].touch()
         arr = self.store.load_tensor((l, e), tidx)
         if not self.device_cache:
             return arr
@@ -977,13 +1006,16 @@ class ZipMoEEngine:
         into their EP owner's row (charged to the ledger's
         ``peer_put_bytes``).  A row out of planned slots keeps the resident
         backed by its own tensors — still servable in place by
-        :meth:`_serve_peer_residents`."""
+        :meth:`_serve_peer_residents`.  Each change bumps the layer
+        cache's epoch."""
         slab = self._peer_slab(layer)
         if slab is None:
             return
-        ppool = self.caches[layer].pools["P"]
+        cache = self.caches[layer]
+        ppool = cache.pools["P"]
         for e in [e for e in slab.slot_of if e not in ppool]:
             slab.free(e)
+            cache.touch()
         names = None
         for e, ent in ppool.items():
             pl = ent.payload
@@ -998,6 +1030,7 @@ class ZipMoEEngine:
             if e in slab.slot_of:
                 refs = slab.refs(e)    # immutable weights: no rewrite
                 pl.full = {tidx: refs[names[tidx]] for tidx in pl.full}
+                cache.touch()
                 continue
             if any(isinstance(v, PeerRef) for v in pl.full.values()):
                 # stale refs, bytes gone: the entry self-heals on its next
@@ -1018,11 +1051,13 @@ class ZipMoEEngine:
                     # them: splice standalone (peer rows hold bf16 bytes)
                     v = self._splice_planes(v)
                     pl.full[tidx] = v
+                    cache.touch()
                 tensors[names[tidx]] = v
             if not usable:
                 continue
             refs = slab.put(e, dev, tensors)
             pl.full = {tidx: refs[names[tidx]] for tidx in pl.full}
+            cache.touch()
 
     def peer_summary(self) -> Dict[str, object]:
         """Peer-tier telemetry: the collective-traffic ledger, the profiled
@@ -1319,6 +1354,7 @@ class ZipMoEEngine:
         payload refs swapped); the old slab is then retired so every
         outstanding SlotRef to it turns stale.  Its buffers are released on
         the same stream, after the copies that read them."""
+        self.caches[layer].touch()
         self._slab_caps[layer] = max(0, int(new_cap))
         old = self._slabs.pop(layer, None)
         if old is None:
@@ -1333,6 +1369,7 @@ class ZipMoEEngine:
             self._slabs[layer] = None
             return
         new = DeviceSlabCache(layer, old.shapes, new_cap, self.device)
+        new.on_change = self.caches[layer].touch
         fpool = self.caches[layer].pools["F"]
         names = None
         for e, ent in fpool.items():
@@ -1564,9 +1601,13 @@ class ZipMoEEngine:
         occupancy; and the decode thread's round trips to the workers: jobs
         submitted, jobs that finished inside ``submit_steps``
         (``jobs_pure_hit``), ``result_subset``'s condition waits and those
-        that ran out their 0.1 s (``subset_wait_timeouts``), and collected
+        that ran out their 0.1 s (``subset_wait_timeouts``), collected
         F residents whose re-admission was skipped as a no-op
-        (``readmit_skips``).  A fully
+        (``readmit_skips``), the keys collected (``collect_keys``) and
+        those handed back and re-admitted with no walk because their
+        layer's cache epoch stood since the pure-hit submit
+        (``collect_fast_keys``), and slab reconciles skipped at an
+        unchanged epoch (``reconcile_skips``).  A fully
         cache-hit decode step must add zero to ``h2d_bytes`` in
         device_cache mode — the regression test's acceptance criterion."""
         slabs = [s for s in self._slabs.values() if s is not None]
@@ -1590,6 +1631,9 @@ class ZipMoEEngine:
                 "subset_waits": self.subset_waits,
                 "subset_wait_timeouts": self.subset_wait_timeouts,
                 "readmit_skips": self.readmit_skips,
+                "collect_keys": self.collect_keys,
+                "collect_fast_keys": self.collect_fast_keys,
+                "reconcile_skips": self.reconcile_skips,
             }
 
     # ------------------------------------------------------------------
@@ -1695,6 +1739,16 @@ class ZipMoEEngine:
                 cache = self.caches[layer]
                 cache.record_access(sel)
                 cache.pin(sel)   # pin-release: _collect (unpinned at drain)
+        fpools = {l: self.caches[l].pools["F"] for l in job.layers}
+        if all(e in fpools[l] for l, e in job.expert_keys):
+            views = {l: self._f_view(l) for l in job.layers}
+            if all(e in views[l] for l, e in job.expert_keys):
+                # every key an F resident holding its tensors in full: a
+                # pure hit decided from the pools, with no per-tensor test
+                # (an F resident is in no other pool: no peer resident)
+                job.payloads = {(l, e): fpools[l][e].payload
+                                for l, e in job.expert_keys}
+                return self._pure_hit(job, sub, lazy=True)
         job.payloads = {(l, e): self._payload(l, e) or ExpertPayload()
                         for l, e in job.expert_keys}
         if self.peer is not None:
@@ -1703,7 +1757,7 @@ class ZipMoEEngine:
             # tensors below exactly like F hits
             self._serve_peer_residents(job)
         if all(self._holds_full(k, job.payloads[k]) for k in job.expert_keys):
-            return self._pure_hit(job, sub)
+            return self._pure_hit(job, sub, lazy=False)
 
         # ---- per-key execution-time priorities (tiered classes) ----------
         key_p: Dict[Tuple[int, int], float] = {}
@@ -1822,19 +1876,55 @@ class ZipMoEEngine:
         return all(tidx in full
                    for tidx in range(len(self.store.groups[key].tensors)))
 
-    def _pure_hit(self, job: _FetchJob, sub) -> FetchHandle:
-        """Finish a job whose every tensor is already in full: seed its
-        tensors from the payloads and complete it here, with no task table
-        or block list (nothing would read them: no worker ever sees the
-        job)."""
-        for key in job.expert_keys:
-            full = job.payloads[key].full
-            n = len(self.store.groups[key].tensors)
-            for tidx in range(n):
-                job.done_tensors[key + (tidx,)] = full[tidx]
-            job.n_total += n
-            if key in job.demand_keys:
-                job.demand_total += n
+    def _f_view(self, layer: int) -> Dict[int, Tuple[bool, Dict[str, object]]]:
+        """The layer's F residents whose payload holds every tensor in full
+        and none as uploaded planes or a peer ref, each mapped to whether
+        the payload also passes :meth:`_readmit_is_noop`'s tests of the
+        payload alone (no chunks, one entry a tensor, every SlotRef valid),
+        and to its tensors by name.  Built once per epoch of the layer's
+        cache: while the epoch stands, no resident, payload or slot
+        changed."""
+        cache = self.caches[layer]
+        memo = self._f_views.get(layer)
+        if memo is not None and memo[0] == cache.epoch:
+            return memo[1]
+        view = {}
+        for e, ent in cache.pools["F"].items():
+            pl = ent.payload
+            if not isinstance(pl, ExpertPayload) or \
+                    not self._holds_full((layer, e), pl):
+                continue
+            vals = pl.full.values()
+            if any(isinstance(v, (DevicePlanes, PeerRef)) for v in vals):
+                continue
+            tms = self.store.groups[(layer, e)].tensors
+            noop = not (pl.sm or pl.e) and len(pl.full) == len(tms) and \
+                all(v.valid for v in vals if isinstance(v, SlotRef))
+            view[e] = (noop, {tm.name: pl.full[tidx]
+                              for tidx, tm in enumerate(tms)})
+        self._f_views[layer] = (cache.epoch, view)
+        return view
+
+    def _pure_hit(self, job: _FetchJob, sub, lazy: bool) -> FetchHandle:
+        """Finish a job whose every tensor is already in full and complete
+        it here, with no task table or block list (nothing would read them:
+        no worker ever sees the job).  With `lazy` (every key in its
+        layer's :meth:`_f_view`) the job keeps each key's ``full`` dict and
+        its layers' epochs instead of seeding ``done_tensors``, which a
+        collect fills only when it walks (:meth:`_seed_done`).  A ``full``
+        dict of such a payload is never changed in place (only uploaded
+        planes are replaced in place), so it holds what seeding would have
+        copied."""
+        fulls = {key: job.payloads[key].full for key in job.expert_keys}
+        if lazy:
+            job.fulls = fulls
+            job.epochs = {l: self.caches[l].epoch for l in job.layers}
+        else:
+            self._seed_done(job, fulls)
+        groups = self.store.groups
+        job.n_total = sum(len(groups[k].tensors) for k in job.expert_keys)
+        job.demand_total = sum(len(groups[k].tensors)
+                               for k in job.demand_keys)
         job.n_done, job.demand_done = job.n_total, job.demand_total
         job.t_demand_ready = time.perf_counter()
         job.demand_ev.set()
@@ -1844,6 +1934,16 @@ class ZipMoEEngine:
         self.jobs_pure_hit += 1
         sub.close(t1)
         return FetchHandle(self, job)
+
+    def _seed_done(self, job: _FetchJob, fulls):
+        """Fill a pure hit's ``done_tensors`` from its keys' ``full``
+        dicts: what a collect that walks reads (once a job)."""
+        if job.seeded:
+            return
+        job.seeded = True
+        for key, full in fulls.items():
+            for tidx in range(len(self.store.groups[key].tensors)):
+                job.done_tensors[key + (tidx,)] = full[tidx]
 
     # ---- persistent I/O thread -------------------------------------------
     def _io_loop(self, gen: int = 0):
@@ -2266,12 +2366,86 @@ class ZipMoEEngine:
         (spec_result / background drains) failures are dropped and
         counted once per key in ``spec_drops``.
 
+        A lazy pure hit (:meth:`_pure_hit`) whose layers' cache epochs all
+        stand since its submit is collected by :meth:`_collect_hit`, with
+        no walk over its tensors; any other job by :meth:`_collect_phase`.
+
         Spans: ``engine.collect`` over the call, ``collect.assemble``,
         ``collect.admit`` and ``collect.reconcile`` (the peer and slab
         reconciles and the DevicePlanes fix-up) inside it.
         """
         with spans.span("engine.collect"):
+            if job.fulls is not None and all(
+                    self.caches[l].epoch == ep
+                    for l, ep in job.epochs.items()):
+                return self._collect_hit(job, subset)
             return self._collect_phase(job, subset, strict)
+
+    def _noop_bound(self, cache):
+        """What :meth:`_readmit_is_noop` tests of the layer rather than of
+        the expert, decided once a layer a collect: None when it could fail
+        for any expert (the flat cache, F not first or capped at 0 or over
+        its cap, another pool holding anything), else F's rank threshold
+        τ_F."""
+        if self.cache_mode == "flat" or cache.order[0] != "F":
+            return None
+        fpool, cap = cache.pools["F"], cache.cap["F"]
+        if cap <= 0 or len(fpool) > cap or \
+                any(pool for pool in cache.pools.values() if pool is not fpool):
+            return None
+        return cache.thresholds()["F"]
+
+    def _collect_hit(self, job: _FetchJob, subset):
+        """:meth:`_collect_phase` for a lazy pure hit while the cache epoch
+        of each of its layers stands since submit.  Nothing in those layers
+        changed but key order: every key is in F with the payload whose
+        ``full`` the job kept, every ref in it valid, and nothing failed.
+        So each expert's weights are its :meth:`_f_view` entry, one lookup;
+        its re-admission is a no-op when :meth:`_noop_bound` and the view
+        say so, and then it only moves to F's end, as
+        :meth:`_collect_phase` moves it; no DevicePlanes to fix up, and the
+        slab reconcile finds its layer's epoch unchanged.  A key the test
+        does not clear, or one met after an admission moved the epoch,
+        takes :meth:`_admit_one`, as in :meth:`_collect_phase`."""
+        sp = spans.span("collect.assemble")
+        requested = set(subset)
+        keys = sorted(requested)
+        views = {l: self._f_view(l) for l in job.epochs}
+        out = {k: dict(views[k[0]][k[1]][1]) for k in keys}
+        sp.close()
+        sp = spans.span("collect.admit")
+        collected, n_fast, layer = job.collected, 0, None
+        for key in keys:
+            l, e = key
+            if l != layer:
+                layer, cache, ep = l, self.caches[l], job.epochs[l]
+                fpool, view = cache.pools["F"], views[l]
+                tau = self._noop_bound(cache)
+            if cache.epoch == ep:
+                if key in collected:
+                    n_fast += 1        # still in F: nothing to re-admit
+                    continue
+                if tau is not None and view[e][0] and \
+                        cache.tracker.rank(e) < tau:
+                    collected.add(key)
+                    fpool[e] = fpool.pop(e)
+                    self.readmit_skips += 1
+                    n_fast += 1
+                    continue
+            self._seed_done(job, job.fulls)
+            self._admit_one(job, l, e)
+        self.collect_keys += len(keys)
+        self.collect_fast_keys += n_fast
+        sp.close()
+        with spans.span("collect.reconcile"):
+            layers = {l for l, _ in keys}
+            if self.peer is not None:
+                for l in layers:
+                    self._reconcile_peer(l)
+            if self.device_cache:
+                for l in layers:
+                    self._reconcile_slab(l)
+        return out, self._collect_end(job, requested, {}, True)
 
     def _collect_phase(self, job: _FetchJob, subset, strict: bool):
         sp = spans.span("collect.assemble")
@@ -2280,6 +2454,8 @@ class ZipMoEEngine:
         with self._cv:
             failed = {k: job.failed[k] for k in want if k in job.failed}
         want -= set(failed)
+        if job.fulls is not None:
+            self._seed_done(job, job.fulls)
         missing = [job.metas[u] for k in job.expert_keys if k in want
                    for u in job.uids.get(k, ())
                    if job.metas[u] not in job.done_tensors]
@@ -2305,48 +2481,13 @@ class ZipMoEEngine:
             out[(l, e)] = w
         sp.close()
         sp = spans.span("collect.admit")
+        for l in {l for l, _ in subset}:
+            # the admissions below move the epoch: a view of the layer built
+            # before would only keep evicted tensors alive
+            self._f_views.pop(l, None)
         for (l, e) in subset:
-            cache = self.caches[l]
-            if (l, e) in job.collected and \
-                    cache.residency(e) is not CState.M:
-                continue               # still resident: nothing to re-admit
-            job.collected.add((l, e))
-            g = self.store.groups[(l, e)]
-            if self.cache_mode != "flat" and \
-                    self._readmit_is_noop(cache, job, l, e, len(g.tensors)):
-                # the admit would pop the entry and put it back as it was:
-                # keep only its one visible effect, the move to F's end
-                # (F's order breaks least_frequent's ties under a budget)
-                fpool = cache.pools["F"]
-                fpool[e] = fpool.pop(e)
-                self.readmit_skips += 1
-                continue
-            # build the comprehensive payload (everything this fetch holds)
-            # and let admission trim it to the dispatched pool via the
-            # _demote_payload fit — payload travels WITH the admit, so a
-            # cascade triggered by a later admit can never orphan it
-            pl = ExpertPayload()
-            pl.full = {tidx: job.done_tensors[(l, e, tidx)]
-                       for tidx in range(len(g.tensors))}
-            if self.cache_mode != "flat":
-                uids = job.uids.get((l, e))    # None: a pure hit's tensors
-                src = job.payloads[(l, e)]
-                for tidx, tm in enumerate(g.tensors):
-                    u = uids[tidx] if uids is not None else None
-                    smb = job.sm_data.get(u, src.sm.get(tidx))
-                    if smb is not None:
-                        pl.sm[tidx] = smb
-                    for k in range(len(tm.e_sizes)):
-                        eb = job.e_data.get((u, k), src.e.get((tidx, k)))
-                        if eb is not None:
-                            pl.e[(tidx, k)] = eb
-            elif self.device_cache and not self._full_payload_usable(pl):
-                # a speculative tail seeded from F-residency whose slot was
-                # since freed: the bytes are gone, never admit the stale
-                # refs as if they still named this expert's weights (the
-                # hierarchical path handles this inside the demote hook)
-                continue
-            cache.admit(e, pl)
+            self._admit_one(job, l, e)
+        self.collect_keys += len(subset)
         sp.close()
         sp = spans.span("collect.reconcile")
         # peer reconcile runs FIRST: an F->P demotion's payload may carry
@@ -2362,8 +2503,9 @@ class ZipMoEEngine:
             # real tensors now that the reconcile ran — to the payload's
             # fresh SlotRef when the fused admit landed the planes in a
             # slab slot (the common case: splice and slab write were ONE
-            # launch), else to a standalone splice
-            for (l, e) in subset:
+            # launch), else to a standalone splice.  A lazy pure hit's
+            # tensors hold no planes: nothing to fix
+            for (l, e) in (subset if job.fulls is None else ()):
                 w = out[(l, e)]
                 if not any(isinstance(v, DevicePlanes) for v in w.values()):
                     continue
@@ -2386,16 +2528,69 @@ class ZipMoEEngine:
                         if pl is not None and \
                                 isinstance(pl.full.get(tidx), DevicePlanes):
                             pl.full[tidx] = v
+                            self.caches[l].touch()
                     w[tm.name] = v
                     with self._cv:
                         job.done_tensors[(l, e, tidx)] = v
         sp.close()
+        return out, self._collect_end(job, requested, failed, strict)
+
+    def _admit_one(self, job: _FetchJob, l: int, e: int):
+        """Admit one collected expert to its layer's cache (or skip a
+        re-admission that would change nothing but its place in F)."""
+        cache = self.caches[l]
+        if (l, e) in job.collected and \
+                cache.residency(e) is not CState.M:
+            return                     # still resident: nothing to re-admit
+        job.collected.add((l, e))
+        g = self.store.groups[(l, e)]
+        if self.cache_mode != "flat" and \
+                self._readmit_is_noop(cache, job, l, e, len(g.tensors)):
+            # the admit would pop the entry and put it back as it was:
+            # keep only its one visible effect, the move to F's end
+            # (F's order breaks least_frequent's ties under a budget)
+            fpool = cache.pools["F"]
+            fpool[e] = fpool.pop(e)
+            self.readmit_skips += 1
+            return
+        # build the comprehensive payload (everything this fetch holds)
+        # and let admission trim it to the dispatched pool via the
+        # _demote_payload fit — payload travels WITH the admit, so a
+        # cascade triggered by a later admit can never orphan it
+        pl = ExpertPayload()
+        pl.full = {tidx: job.done_tensors[(l, e, tidx)]
+                   for tidx in range(len(g.tensors))}
+        if self.cache_mode != "flat":
+            uids = job.uids.get((l, e))    # None: a pure hit's tensors
+            src = job.payloads[(l, e)]
+            for tidx, tm in enumerate(g.tensors):
+                u = uids[tidx] if uids is not None else None
+                smb = job.sm_data.get(u, src.sm.get(tidx))
+                if smb is not None:
+                    pl.sm[tidx] = smb
+                for k in range(len(tm.e_sizes)):
+                    eb = job.e_data.get((u, k), src.e.get((tidx, k)))
+                    if eb is not None:
+                        pl.e[(tidx, k)] = eb
+        elif self.device_cache and not self._full_payload_usable(pl):
+            # a speculative tail seeded from F-residency whose slot was
+            # since freed: the bytes are gone, never admit the stale
+            # refs as if they still named this expert's weights (the
+            # hierarchical path handles this inside the demote hook)
+            return
+        cache.admit(e, pl)
+
+    def _collect_end(self, job: _FetchJob, requested, failed,
+                     strict: bool) -> FetchStats:
+        """A collect's last steps: release the job's demand pins among
+        `requested`, report the phase's stats, and raise or count the
+        failed keys."""
         # release this job's own demand pins exactly once per expert (pins
         # are refcounted: a step's independent pin on the same expert, taken
         # via pin_experts, survives this release) — failed keys included,
         # or a failed demand expert would leak its pin forever
         by_layer: Dict[int, List[int]] = collections.defaultdict(list)
-        for (l, e) in sorted(requested):
+        for (l, e) in sorted(requested) if job.demand_keys else ():
             if (l, e) in job.demand_keys and (l, e) not in job.unpinned:
                 job.unpinned.add((l, e))
                 by_layer[l].append(e)
@@ -2420,8 +2615,7 @@ class ZipMoEEngine:
             dec_new = job.stats.dec_ops - job.dec_reported
             job.dec_reported = job.stats.dec_ops
             stats = FetchStats(wall=wall, io_bytes=io_new, dec_ops=dec_new,
-                               hits={k: v
-                                     for k, v in primary_cache.hits.items()})
+                               hits=dict(primary_cache.hits))
         if failed:
             demand_failed = {k: v for k, v in failed.items()
                              if k in job.demand_keys}
@@ -2432,4 +2626,4 @@ class ZipMoEEngine:
                     if k not in job.spec_drop_counted:
                         job.spec_drop_counted.add(k)
                         self.spec_drops += 1
-        return out, stats
+        return stats

@@ -127,6 +127,10 @@ class DeviceSlabCache:
         # no locks by design: all mutation on the engine caller's (decode)
         # thread; ZIPMOE_CHECK=1 asserts that (see checkz.MutatorGuard)
         self._guard = checkz.make_guard(f"DeviceSlabCache(layer={layer})")
+        # called after every put, free and retire: the engine points it at
+        # its layer cache's ``touch``, so the cache's epoch moves with the
+        # slots its payloads name
+        self.on_change = None
 
     # -- queries -----------------------------------------------------------
     def __contains__(self, expert: int) -> bool:
@@ -168,6 +172,8 @@ class DeviceSlabCache:
             assert tuple(val.shape) == self.shapes[name], (name, val.shape)
             self.bufs[name][slot].copy_(val)
         self.writes += 1
+        if self.on_change is not None:
+            self.on_change()
         return self.refs(expert)
 
     def free(self, expert: int):
@@ -179,6 +185,8 @@ class DeviceSlabCache:
             return
         self.gen[slot] += 1
         self._free.append(slot)
+        if self.on_change is not None:
+            self.on_change()
 
     def retire(self):
         """Decommission the whole slab: every slot's generation is bumped so
@@ -192,6 +200,8 @@ class DeviceSlabCache:
         self.slot_of.clear()
         self._free = list(range(self.capacity - 1, -1, -1))
         self.bufs = {}
+        if self.on_change is not None:
+            self.on_change()
 
     # -- the hot-path read -------------------------------------------------
     def gather(self, name: str, slots: Sequence[int]) -> torch.Tensor:  # hot-path

@@ -10,16 +10,24 @@
   makes them, with every expert in F and at a budget of F 2 / C 2 / S 2 /
   E 2 under a drifting popularity, where F residents are re-ranked and
   demoted; and a collected F resident whose rank has fallen below F's is
-  demoted as the reference demotes it.
+  demoted as the reference demotes it;
+* while a layer cache's epoch stands, a pure hit's collects hand back its
+  F payloads' tensors and skip the slab reconcile with no walk
+  (``collect_fast_keys``, ``reconcile_skips``); after each change that
+  bumps the epoch, a pending pure hit takes the full walk and the cache
+  still ends as the reference's.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro.core.engine import ZipMoEEngine as RefEngine
+from repro.core.planner import LayerPlan as RefLayerPlan
 from repro.core.store import ExpertStore as RefStore
 from repro.core.store import build_store as ref_build_store
 from repro_torch.core.engine import ZipMoEEngine
+from repro_torch.core.planner import LayerPlan
+from repro_torch.core.slab import SlotRef
 from repro_torch.core.store import ExpertStore
 from test_torch_models import both_params
 
@@ -64,12 +72,36 @@ def _trace(n_experts: int, n_layers: int, seed: int = 7):
     return out
 
 
-def _round_trip(eng, layer, pending, sel, pred):
+def _settled(h):
+    """`h` once its job is done: a collect's io bytes then count all of
+    the job's reads, however far the workers had got by the call."""
+    assert h._job.done_ev.wait(60.0), "fetch job still running"
+    return h
+
+
+def _held_refs(eng, layer, weights):
+    """Every SlotRef in `weights` is valid, and where its expert is in F
+    it is the F payload's own ref for that tensor."""
+    fpool = eng.caches[layer].pools["F"]
+    for e, w in weights.items():
+        names = [t.name for t in eng.store.groups[(layer, e)].tensors]
+        ent = fpool.get(e)
+        for tidx, nm in enumerate(names):
+            v = w[nm]
+            if not isinstance(v, SlotRef):
+                continue
+            assert v.valid, (layer, e, nm)
+            if ent is not None:
+                assert ent.payload.full[tidx] == v, (layer, e, nm)
+
+
+def _round_trip(eng, layer, pending, sel, pred, check=None):
     """One MoE layer's step as ``_acquire_experts`` makes it: pin, a
     demand job for what the pending prediction misses, ``result_subset``
     of the covered part, the demand job's ``result()``, the drain
-    (``spec_result``), unpin, the next prediction's submission.  Returns
-    the collects' io bytes and the next pending (handle, covered ids)."""
+    (``spec_result``), unpin, the next prediction's submission.  Each
+    collect's weights go to `check`.  Returns the collects' io bytes and
+    the next pending (handle, covered ids)."""
     io = []
     h, covered = pending.get(layer, (None, frozenset()))
     take = [e for e in sel if e in covered]
@@ -78,9 +110,15 @@ def _round_trip(eng, layer, pending, sel, pred):
     eng.note_access(layer, take)
     h_m = eng.prefetch_experts(layer, missing) if missing else None
     if take:
-        io.append(h.result_subset(take, layer=layer)[1].io_bytes)
+        w, st = _settled(h).result_subset(take, layer=layer)
+        io.append(st.io_bytes)
+        if check is not None:
+            check(eng, layer, w)
     if h_m is not None:
-        io.append(h_m.result()[1].io_bytes)
+        w, st = h_m.result()
+        io.append(st.io_bytes)
+        if check is not None:
+            check(eng, layer, w)
     if h is not None:
         io.append(h.spec_result()[1].io_bytes)
     eng.unpin_experts(layer, sel)
@@ -112,20 +150,28 @@ def test_round_trips_leave_the_reference_cache_state(setup, kw):
         t0 = eng.transfer_summary()
         for step in _trace(cfg.n_experts, cfg.n_layers):
             for layer, (sel, pred) in enumerate(step):
-                io_p = _round_trip(eng, layer, pend_p, sel, pred)
+                io_p = _round_trip(eng, layer, pend_p, sel, pred,
+                                   check=_held_refs)
                 io_r = _round_trip(ref, layer, pend_r, sel, pred)
                 assert io_p == io_r
                 assert _state(eng) == _state(ref)
                 assert eng.cache_summary(per_layer=True) == \
                     ref.cache_summary(per_layer=True)
         t = {k: v - t0[k] for k, v in eng.transfer_summary().items()
-             if k in ("readmit_skips", "jobs_pure_hit", "jobs_submitted")}
+             if k in ("readmit_skips", "jobs_pure_hit", "jobs_submitted",
+                      "collect_keys", "collect_fast_keys",
+                      "reconcile_skips")}
         if kw.get("cache_mode") == "flat":
             assert t["readmit_skips"] == 0
         else:
             assert t["readmit_skips"] > 0
         if warm:
             assert t["jobs_pure_hit"] == t["jobs_submitted"] > 0
+            # nothing moves the epochs: every key and reconcile skips
+            assert t["collect_fast_keys"] == t["collect_keys"] > 0
+            assert t["reconcile_skips"] > 0
+        else:
+            assert t["collect_fast_keys"] < t["collect_keys"]
     finally:
         eng.shutdown()
         ref.shutdown()
@@ -212,3 +258,79 @@ def test_all_f_job_is_done_at_submit_without_tasks(setup):
         assert t2["jobs_submitted"] == t1["jobs_submitted"] + 1
     finally:
         eng.shutdown()
+
+
+def _grow_f(e, plan_cls):
+    """``apply_plans`` with F grown to 6 slots: the cache is resized and
+    the layer's slab re-sized (residents migrate, the old slab retires)."""
+    f = e._bytes_per_state(0)["F"]
+    sizes = {"F": 6, "C": 2, "S": 2, "E": 2}
+    e.apply_plans({0: plan_cls(layer=0, sizes=sizes,
+                               cap_bytes={p: n * f for p, n in sizes.items()},
+                               ratios={}, cost=0.0, budget=0.0)})
+
+
+def _bump(e, case, plan_cls):
+    """One change to layer 0 while a pure hit of its F residents 0–3 is
+    pending."""
+    if case == "evicting_admit":
+        for _ in range(2):
+            e.note_access(0, [4, 5])
+        e.fetch_experts(0, [4, 5])       # hotter than 0–3: displaces two
+    elif case == "apply_plans":
+        _grow_f(e, plan_cls)
+    elif case == "slab_free":
+        e._slab(0).free(2)               # expert 2's refs turn stale
+    elif case == "cross_layer_drain":
+        h = e.submit_steps([(1, [0], []), (0, [], [4, 5])])
+        h.result()
+        _settled(h).spec_result()        # admits 4 and 5 into layer 0
+
+
+@pytest.mark.parametrize("case", ["none", "evicting_admit", "apply_plans",
+                                  "slab_free", "cross_layer_drain"])
+def test_pending_pure_hit_walks_after_an_epoch_bump(setup, case):
+    """A pure hit of F's residents is pending while `case` changes layer 0
+    (``none``: nothing does).  Its collect hands the F payloads' tensors
+    back with no walk only while the layer's epoch stands; after each
+    change it takes the full walk, and the cache ends as the
+    reference's."""
+    cfg, d = setup
+    args = dict(n_experts=cfg.n_experts, n_layers=cfg.n_layers, L=2,
+                device_cache=True, pool_sizes=BUDGET | {"F": 4})
+    ref = RefEngine(RefStore(d), **args)
+    eng = ZipMoEEngine(ExpertStore(d), device="cpu", **args)
+    try:
+        handles = []
+        for e, plan_cls in ((eng, LayerPlan), (ref, RefLayerPlan)):
+            e.fetch_experts(0, [0, 1, 2, 3])
+            h = e.submit_steps([(0, [], [0, 1, 2, 3])])
+            assert h.done()
+            handles.append(h)
+            if e is eng:
+                assert h._job.fulls is not None      # seeded lazily
+                epoch = eng.caches[0].epoch
+                t0 = eng.transfer_summary()
+            _bump(e, case, plan_cls)
+        assert (eng.caches[0].epoch == epoch) == (case == "none")
+        if case == "evicting_admit":
+            assert set(eng.caches[0].pools["F"]) != {0, 1, 2, 3}
+        for h in handles:
+            h.spec_result()
+        t = {k: v - t0[k] for k, v in eng.transfer_summary().items()
+             if k in ("collect_keys", "collect_fast_keys")}
+        if case == "none":
+            assert t["collect_fast_keys"] == t["collect_keys"] == 4
+        else:
+            assert t["collect_keys"] >= 4
+            assert t["collect_fast_keys"] == 0
+        assert _state(eng) == _state(ref)
+        assert eng.cache_summary(per_layer=True) == \
+            ref.cache_summary(per_layer=True)
+        fpool = eng.caches[0].pools["F"]
+        for e in fpool:
+            for v in fpool[e].payload.full.values():
+                assert not isinstance(v, SlotRef) or v.valid
+    finally:
+        eng.shutdown()
+        ref.shutdown()

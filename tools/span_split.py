@@ -30,8 +30,9 @@ one more line, ``span_split: {...}``:
   ``idle_gaps_end``: named with the program's spans placed by the
   closing synchronize (the clock check's ``end_shift_us``);
 - ``engine``: over the window, the engine's round-trip counters of
-  ``transfer_summary()`` (those the program has: ``readmit_skips`` is
-  left out where it lacks it) and ``admits``, the calls of
+  ``transfer_summary()`` (those the program has: ``readmit_skips``,
+  ``collect_keys``, ``collect_fast_keys`` and ``reconcile_skips`` are
+  left out where it lacks them) and ``admits``, the calls of
   ``HierarchicalCache.admit``; ``engine_per_step``: the same per window
   step;
 - ``attn``: ``zs.attn``'s ms per window step beside the window's kernel
@@ -268,7 +269,9 @@ def main(argv=None, *, root: Path = ROOT, device=None) -> int:
                         k: tr[k] - self.tr0[k] for k in (
                             "jobs_submitted", "jobs_pure_hit",
                             "subset_waits", "subset_wait_timeouts",
-                            "readmit_skips") if k in tr}
+                            "readmit_skips", "collect_keys",
+                            "collect_fast_keys", "reconcile_skips")
+                        if k in tr}
                     out["engine"]["admits"] = admits["n"]
                     out["launches"] = {
                         k: n - self.launches0.get(k, 0)
